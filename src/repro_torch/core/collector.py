@@ -1,0 +1,125 @@
+"""Collector: owns the columnar event table and the probe suite; the eACGM
+daemon (port of `repro/core/collector.py`).
+
+Usage (the model/training code is never modified — the launcher simply asks
+the collector to observe the step callable it already has):
+
+    col = Collector.standard()
+    with col.monitoring():
+        step_fn = col.observe_step_fn(step_fn)
+        for batch in data:
+            state, metrics = step_fn(state, batch)
+    cols = col.drain_columns()
+
+Probes emit row blocks straight into the `EventTable`; `drain_columns` /
+`snapshot_columns` hand the same columns to the feature builder. The
+Event-list `drain()`/`snapshot()` remain as compat shims that materialise
+objects on demand (export, legacy tooling) — never on the monitoring hot
+path.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Any, Callable, Dict, List
+
+import numpy as np
+
+from repro_torch.core.events import Event, EventTable, export_perfetto
+from repro_torch.core.probes import Probe
+from repro_torch.core.probes.device_probe import H100_POWER_LIMIT_W
+
+
+class Collector:
+    def __init__(self, probes: List[Probe], capacity: int = 1_000_000):
+        self.buffer = EventTable(capacity)
+        self.probes = probes
+        self.t0 = time.perf_counter()
+        self._by_name = {p.name: p for p in probes}
+        step = self._by_name.get("step")
+        if step is not None:
+            for p in probes:
+                p.current_step = lambda s=step: s.step_count
+
+    # -- construction ---------------------------------------------------------
+    @staticmethod
+    def standard(device_interval: float = 0.25, n_devices: int = 1,
+                 capacity: int = 1_000_000,
+                 peak_w: float = H100_POWER_LIMIT_W) -> "Collector":
+        """The standard suite of the probes ported so far: ``collective``,
+        ``device`` and ``step`` (the JAX package's ``xla``, ``operator`` and
+        ``python`` probes come with a later slice). ``peak_w`` is the power
+        limit the simulated card telemetry peaks at."""
+        # late import, as in the reference: the session package sits above
+        from repro_torch.session.registry import build_probes
+
+        options = {"device": {"interval": device_interval,
+                              "n_devices": n_devices, "peak_w": peak_w}}
+        return Collector(build_probes(["collective", "device", "step"],
+                                      options), capacity)
+
+    def __getitem__(self, name: str) -> Probe:
+        try:
+            return self._by_name[name]
+        except KeyError:
+            raise KeyError(
+                f"no probe named {name!r} in this collector; "
+                f"available: {sorted(self._by_name)}") from None
+
+    @property
+    def step_probe(self) -> Probe:
+        return self["step"]
+
+    # -- lifecycle ------------------------------------------------------------
+    def attach(self) -> None:
+        for p in self.probes:
+            p.attach(self.buffer, t0=self.t0)
+
+    def detach(self) -> None:
+        for p in reversed(self.probes):
+            p.detach()
+
+    @contextlib.contextmanager
+    def monitoring(self):
+        self.attach()
+        try:
+            yield self
+        finally:
+            self.detach()
+
+    # -- observation hooks ------------------------------------------------------
+    def observe_step_fn(self, fn: Callable, *, flops_per_step: float = 0.0,
+                        mem_gb: float = 0.0) -> Callable:
+        """Wrap a built step callable. Non-intrusive: operates only on
+        objects the launcher already holds."""
+        step = self.step_probe
+        step.flops_per_step = flops_per_step
+        step.mem_gb_per_step = mem_gb
+        return step.wrap(fn)
+
+    # -- data -----------------------------------------------------------------
+    def drain_columns(self) -> Dict[str, np.ndarray]:
+        """Remove and return all rows as a ColumnView (the native path)."""
+        return self.buffer.drain_columns()
+
+    def snapshot_columns(self) -> Dict[str, np.ndarray]:
+        return self.buffer.snapshot_columns()
+
+    def drain(self) -> List[Event]:
+        """Compat shim: drain and materialise `Event` objects."""
+        return self.buffer.drain()
+
+    def snapshot(self) -> List[Event]:
+        return self.buffer.snapshot()
+
+    def export_trace(self, path: str) -> str:
+        return export_perfetto(self.snapshot(), path)
+
+    def overhead_stats(self) -> Dict[str, Any]:
+        return {
+            "events": len(self.buffer),
+            "events_total": self.buffer.pushed,
+            "dropped": self.buffer.dropped,
+            "names_truncated": self.buffer.names_truncated,
+            "emitted_per_probe": {p.name: p.emitted for p in self.probes},
+        }

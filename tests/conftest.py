@@ -7,3 +7,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (the CUDA kernels have no CPU "
+        "mode); skips without one")
