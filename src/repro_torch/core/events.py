@@ -522,7 +522,7 @@ def export_perfetto(events: Iterable[Event], path: str) -> str:
 # Canonical column dtypes of the *legacy* feature-builder view. String
 # columns use object-free unicode; an empty event list must still yield
 # correctly-dtyped (0,)-shaped columns — the stream wire format
-# (the JAX package's repro.stream.wire) round-trips empty flushes through this schema.
+# (`repro_torch.stream.wire`) round-trips empty flushes through this schema.
 EVENT_SCHEMA: Dict[str, np.dtype] = {
     "layer": np.dtype("<U10"),
     "name": NAME_DT,

@@ -11,8 +11,7 @@ arrays produced by `EventTable.drain_columns`, `wire.decode`, or
 (np.unique + argsort), never a Python loop over records. `List[Event]` input
 is accepted as a compat shim and columnarised once at the boundary. The same
 raw-matrix code serves both the batch featurizer here and the streaming
-detector (the JAX package's `repro.stream.online`; not ported yet), so
-the two paths cannot drift.
+detector (`repro_torch.stream.online`), so the two paths cannot drift.
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
 """Gaussian Mixture Model + EM (paper Algorithm 1) and the Definition-1
-anomaly criterion (Algorithm 2) on PyTorch — the batch half of
-`repro/core/gmm.py`.
+anomaly criterion (Algorithm 2) on PyTorch (port of `repro/core/gmm.py`).
 
 Full-covariance GMM, log-domain throughout, Cholesky-parameterised. The
-per-event densities go through `repro_torch.kernels.ops`: the CUDA kernels on
-the card, their plain PyTorch versions for CPU tensors. The streaming and
-incremental EM of the reference (``fit_gmm_streaming``, ``SuffStats``) comes
-with the slice that ports the ``gmm_stats`` / ``gmm_update`` kernels.
+per-event densities and the EM passes go through `repro_torch.kernels.ops`:
+the CUDA kernels on the card, their plain PyTorch versions for CPU tensors.
+The batch half (``fit_gmm``, ``GMM``) runs EM in torch ops around the
+``gmm_score`` kernel; the streaming half (``fit_gmm_streaming``,
+``SuffStats``, ``stats_from_batch``) is one ``gmm_update`` or ``gmm_stats``
+launch per pass over the data.
 """
 from __future__ import annotations
 
@@ -189,3 +190,88 @@ class GMM:
         log_p = component_log_prob(self._tensor(X), self.params)
         log_r = self.params.log_weights[None] + log_p
         return torch.exp(log_r - _logsumexp(log_r, 1)[:, None]).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Streaming EM: one fused pass over X per iteration (the gmm_update kernel);
+# the (N, K) responsibility matrix never exists
+# ---------------------------------------------------------------------------
+
+
+def fit_gmm_streaming(X: torch.Tensor, seed: int = 0, *, n_components: int,
+                      n_iters: int = 50, reg: float = 1e-6,
+                      params0: Optional[GMMParams] = None
+                      ) -> Tuple[GMMParams, torch.Tensor]:
+    """EM where each iteration is a single fused pass over X
+    (``kernels.ops.gmm_update``: E-step stats + M-step mean/cov in one
+    kernel call). X: (N, D) on the device that runs the fit.
+
+    Mathematically identical to fit_gmm (same E/M updates); memory is
+    O(K D^2) instead of O(N K). ``params0`` warm-starts EM from a previous
+    window's fit. Returns (params, ll_trace (n_iters,)), the trace being the
+    mean log-likelihood per row of each iteration. The reference reads every
+    iteration's ll back to the host; here the trace stays on the device and
+    is stacked after the loop, so the iterations queue without a sync."""
+    N, D = X.shape
+    K = n_components
+    X = X.to(torch.float32)
+    log_w, means, prec = _init_params(X, seed, K, reg, params0)
+    lls = []
+    for _ in range(n_iters):
+        nk, means, cov, ll = ops.gmm_update(X, log_w, means, prec)
+        prec = _prec_chol_from_cov(cov, reg)
+        log_w = torch.log((nk + 1e-10) / N)
+        lls.append(ll / N)
+    ll_trace = torch.stack(lls) if lls else X.new_zeros((0,))
+    return GMMParams(log_w, means, prec), ll_trace
+
+
+# ---------------------------------------------------------------------------
+# Incremental (stepwise) EM: fold fresh rows into persistent per-sample
+# sufficient statistics instead of refitting on a bootstrap of the window
+# ---------------------------------------------------------------------------
+
+
+class SuffStats(NamedTuple):
+    """Per-sample averaged EM sufficient statistics: ``nk`` sums to 1 over
+    components, ``sx``/``sxx`` are responsibility-weighted first/second
+    moments divided by the batch size. Averaged (not summed) so batches of
+    different sizes fold with a simple convex combination."""
+
+    nk: torch.Tensor  # (K,)
+    sx: torch.Tensor  # (K, D)
+    sxx: torch.Tensor  # (K, D, D)
+
+
+def stats_from_batch(X: torch.Tensor, params: GMMParams, *,
+                     nvalid: Optional[int] = None
+                     ) -> Tuple[SuffStats, float]:
+    """One fused E-step pass over a batch -> (per-sample stats, mean ll).
+
+    ``nvalid`` supports bucketed shapes: X may be zero-padded to a fixed
+    power-of-two row count, with only the first ``nvalid`` rows real. The
+    mean ll is read back to the host (one sync), as the reference does."""
+    n = X.shape[0] if nvalid is None else int(nvalid)
+    nk, sx, sxx, ll = ops.gmm_stats(X.to(torch.float32), params.log_weights,
+                                    params.means, params.prec_chol,
+                                    nvalid=nvalid)
+    n = max(n, 1)
+    return SuffStats(nk / n, sx / n, sxx / n), float(ll) / n
+
+
+def fold_stats(old: SuffStats, new: SuffStats, rho: float) -> SuffStats:
+    """Stepwise-EM fold (Cappé & Moulines): s <- (1-rho) s + rho s_new."""
+    rho = float(rho)
+    return SuffStats(*((1.0 - rho) * o + rho * n
+                       for o, n in zip(old, new)))
+
+
+def params_from_stats(stats: SuffStats, reg: float = 1e-6) -> GMMParams:
+    """M-step from folded per-sample statistics (tiny: O(K D^2) + a (K,D,D)
+    Cholesky — the only non-kernel work of an incremental refit)."""
+    nk = stats.nk.to(torch.float32) + 1e-10
+    means = stats.sx.to(torch.float32) / nk[:, None]
+    cov = (stats.sxx.to(torch.float32) / nk[:, None, None]
+           - torch.einsum("kd,ke->kde", means, means))
+    log_w = torch.log(nk / torch.sum(nk))
+    return GMMParams(log_w, means, _prec_chol_from_cov(cov, reg))

@@ -1,0 +1,423 @@
+"""Online windowed GMM detection over aggregator windows (port of
+`repro/stream/online.py`).
+
+`OnlineGMMDetector` is the streaming counterpart of `core.detector`'s
+batch `FullStackMonitor`:
+
+* features are computed **directly from the columnar windows** (vectorised;
+  no `Event` objects), with the same per-layer feature spaces as
+  `core.features.build_features`;
+* per-name duration baselines and the standardiser are fitted once on the
+  warmup window and then frozen (a detector must not re-derive its
+  normalisation from the window it scores);
+* each detection tick refits the GMM **warm-started from the previous
+  window's params** via `fit_gmm_streaming(params0=...)` — a few EM
+  iterations on the inlier rows track slow drift at a fraction of a cold
+  fit's cost;
+* a likelihood collapse on the *inlier* rows (beyond ``drift_tol`` nats)
+  signals concept drift and triggers a full cold refit + threshold
+  recalibration.
+
+The GMM fits and scores run on ``device`` (default ``cuda``): every EM
+iteration is one ``gmm_update`` kernel call, the statistics of a fold one
+``gmm_stats`` call, and scoring goes through ``gmm_best`` / ``gmm_score``.
+Features, baselines, the standardiser and the thresholds stay numpy on the
+host, as in `repro_torch.core.detector`. The bootstrap rows come from the
+same numpy generator, used in the same order, as the reference's; the cold
+EM inits draw their seeds from a second numpy generator where the reference
+splits a `jax.random` key.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.events import Layer
+from repro_torch.core.features import (baseline_for, name_medians,
+                                       raw_feature_matrix)
+from repro_torch.core.gmm import (GMMParams, SuffStats, fit_gmm_streaming,
+                                  fold_stats, params_from_stats,
+                                  score_samples, stats_from_batch,
+                                  total_log_likelihood)
+from repro_torch.detect.cache import SHAPE_CACHE, pad_to_bucket
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.stream.window import FleetAggregator, LayerWindow
+
+
+@dataclasses.dataclass
+class WindowFeatures:
+    """One layer window, featurised."""
+
+    layer: Layer
+    X: np.ndarray  # (N, D)
+    steps: np.ndarray  # (N,) int64
+    nodes: np.ndarray  # (N,) int32
+    ts: np.ndarray  # (N,) float64
+    names: np.ndarray  # (N,) source event names
+
+
+@dataclasses.dataclass
+class WindowDetection:
+    """Per-layer flags for the current window (streaming DetectionResult)."""
+
+    layer: Layer
+    flags: np.ndarray  # (N,) bool
+    scores: np.ndarray  # (N,) best-component log density
+    log_delta: float
+    steps: np.ndarray
+    nodes: np.ndarray
+    ts: np.ndarray
+    refit: str = "warm"  # warm | cold (drift) | none
+
+    @property
+    def anomaly_rate(self) -> float:
+        return float(np.mean(self.flags)) if len(self.flags) else 0.0
+
+    def anomalous_steps(self) -> np.ndarray:
+        return np.unique(self.steps[self.flags & (self.steps >= 0)])
+
+
+@dataclasses.dataclass
+class _LayerState:
+    medians: Dict[str, float]
+    global_median: float
+    mean: np.ndarray
+    std: np.ndarray
+    params: GMMParams
+    log_delta: float
+    ll_fit: float  # mean total log-likelihood at fit time (drift reference)
+    n_components: int
+    cold_refits: int = 0
+    warm_refits: int = 0
+    # incremental-EM state: per-sample sufficient statistics of everything
+    # folded so far, the newest event timestamp already folded, and an
+    # effective sample count (capped, so old windows decay)
+    stats: Optional[SuffStats] = None
+    last_ts: float = float("-inf")
+    n_seen: int = 0
+    folds_since_anchor: int = 0
+    last_n: int = 0  # window rows at the previous tracked sweep
+
+
+def _raw_features(layer: Layer, v: Dict[str, np.ndarray]
+                  ) -> Optional[WindowFeatures]:
+    """Window columns -> unbaselined feature matrix (rel_dur column zeroed;
+    the caller fills it from fitted per-name medians). The matrix itself
+    comes from the SAME `core.features.raw_feature_matrix` the batch path
+    uses — batch and stream cannot drift apart."""
+    names = v["name"]
+    keep = np.flatnonzero(
+        ~np.char.startswith(names.astype(str, copy=False), "static/"))
+    raw = raw_feature_matrix(layer, v, keep)
+    if raw is None:
+        return None
+    X, keep = raw
+    return WindowFeatures(layer=layer, X=X, steps=v["step"][keep],
+                          nodes=v["node"][keep], ts=v["ts"][keep],
+                          names=names[keep])
+
+
+def _apply_baseline(fs: WindowFeatures, medians: Dict[str, float],
+                    global_median: float) -> None:
+    """Fill rel_dur (column 1) = log_dur - fitted per-name median."""
+    fs.X[:, 1] = fs.X[:, 0] - baseline_for(fs.names, medians, global_median)
+
+
+class OnlineGMMDetector:
+    """One warm-started GMM per layer over the aggregator's sliding windows."""
+
+    # REQUEST rows are SLO-thresholded by the serve plane, not GMM-modelled:
+    # request latencies are workload-shaped (queue wait under load), so a
+    # density fit over them would alarm on every traffic change.
+    LAYERS = tuple(l for l in Layer if l is not Layer.REQUEST)
+
+    def __init__(self, n_components: int = 3, contamination: float = 0.02,
+                 refit_iters: int = 4, cold_iters: int = 40,
+                 drift_tol: float = 3.0, min_events: int = 64,
+                 reg: float = 1e-2, fit_rows: int = 2048, seed: int = 0,
+                 delta_step: float = 2.0, incremental: bool = True,
+                 device: DeviceLike = None):
+        self.n_components = n_components
+        self.contamination = contamination
+        self.refit_iters = refit_iters
+        self.cold_iters = cold_iters
+        self.drift_tol = drift_tol
+        self.min_events = min_events
+        self.reg = reg
+        # EM refits run on a fixed-size bootstrap of the window and scoring
+        # pads to power-of-two buckets, as in the reference (where XLA
+        # recompiles per shape); the CUDA kernels take N at run time, so
+        # here the fixed shapes only keep the two packages' arithmetic and
+        # bootstrap draws the same.
+        self.fit_rows = fit_rows
+        # max nats the threshold may move per warm refit while tracking the
+        # window's contamination quantile: enough to follow slow benign
+        # drift (host timing, thermal), far too slow for a burst fault
+        # (tens-hundreds of nats below delta) to drag the threshold down
+        self.delta_step = float(delta_step)
+        # incremental warm refits: fold ONLY the window rows newer than the
+        # last fold into persistent sufficient statistics (one fused E-step
+        # pass over the new rows + an O(K D^2) host M-step) instead of
+        # running ``refit_iters`` EM iterations over a fit_rows bootstrap of
+        # the whole window every tick
+        self.incremental = bool(incremental)
+        # effective-sample cap: keeps the fold weight rho bounded away from
+        # zero so the model stays adaptive after long uptimes
+        self.n_seen_cap = 8 * fit_rows
+        # every anchor_every folds, re-anchor the statistics with one
+        # bootstrap warm refit over the live window: stepwise folds forget
+        # at rho-rate while the scoring window spans the full horizon, and
+        # without an anchor the model slowly walks away from the very rows
+        # it scores (the contamination quantile then ratchets the threshold
+        # into the bulk, diluting incident deficits)
+        self.anchor_every = 8
+        # fold only while the model agrees with the window: a flag fraction
+        # far above the contamination target means the fit is wrong (e.g. a
+        # warmup sample too narrow for the live distribution), and folds
+        # cannot repair it — flagged rows are censored from learning, so the
+        # misfit locks in. Those sweeps take the bootstrap-refit branch
+        # instead, which is how the pre-incremental detector adapted.
+        self.anchor_flag_frac = max(4.0 * contamination, 0.05)
+        # stepwise EM assumes a (quasi-)stationary sample stream; while the
+        # window is still ramping up — growing more than this fraction per
+        # sweep — its distribution is still filling in, and folds can only
+        # chase it. Ramp-up sweeps take the bootstrap branch (the model
+        # continuously re-tracks the growing window, as the pre-incremental
+        # detector did); folds start once the window reaches steady state,
+        # which is where the kernel-cost win matters anyway
+        self.fold_growth_tol = 0.05
+        self.seed = seed
+        # model tracking switch: False freezes every layer model after its
+        # warmup fit (no warm refits, no drift-triggered cold refits)
+        self.track = True
+        self.states: Dict[Layer, _LayerState] = {}
+        self.device = resolve_device(device)
+        # the bootstrap draws: the reference's generator, used in its order
+        self._rng = np.random.default_rng(seed)
+        # cold EM inits (the reference splits a jax.random key here)
+        self._init_rng = np.random.default_rng([seed, 1])
+
+    # -- helpers --------------------------------------------------------------
+    def _next_seed(self) -> int:
+        return int(self._init_rng.integers(2 ** 31))
+
+    def _tensor(self, X: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(X, dtype=np.float32),
+                               device=self.device)
+
+    def _fit_sample(self, X: np.ndarray) -> np.ndarray:
+        """Exactly fit_rows rows: bootstrap up when short, subsample down
+        when long. EM sees one compiled shape for the detector's lifetime."""
+        n = X.shape[0]
+        if n == self.fit_rows:
+            return X
+        idx = self._rng.choice(n, self.fit_rows, replace=n < self.fit_rows)
+        return X[idx]
+
+    def _score_bucketed(self, Xs: np.ndarray, params: GMMParams
+                        ) -> np.ndarray:
+        """score_samples with N padded to the next power of two (>=256):
+        scores of the zero padding rows are computed and discarded."""
+        Xp, n = pad_to_bucket(np.ascontiguousarray(Xs, dtype=np.float32))
+        SHAPE_CACHE.record("score", Xp.shape[0], Xp.shape[1],
+                           params.n_components)
+        return score_samples(self._tensor(Xp), params)[0].cpu().numpy()[:n]
+
+    def _featurize(self, window: LayerWindow,
+                   state: _LayerState) -> Optional[WindowFeatures]:
+        if len(window) == 0:
+            return None
+        fs = _raw_features(window.layer, window.view())
+        if fs is None:
+            return None
+        if window.layer != Layer.DEVICE:
+            _apply_baseline(fs, state.medians, state.global_median)
+        return fs
+
+    def _cold_fit(self, layer: Layer, fs: WindowFeatures) -> _LayerState:
+        if layer == Layer.DEVICE:
+            medians, gmed = {}, 0.0
+        else:
+            medians, gmed = name_medians(fs.names, fs.X[:, 0])
+            _apply_baseline(fs, medians, gmed)
+        mean = fs.X.mean(0)
+        std = np.maximum(fs.X.std(0), 1e-9)
+        Xs = ((fs.X - mean) / std).astype(np.float32)
+        k = min(self.n_components, max(1, Xs.shape[0] // 32))
+        sample = self._fit_sample(Xs)
+        params, lls = fit_gmm_streaming(self._tensor(sample),
+                                        self._next_seed(), n_components=k,
+                                        n_iters=self.cold_iters, reg=self.reg)
+        scores = self._score_bucketed(Xs, params)
+        log_delta = float(np.quantile(scores, self.contamination))
+        state = _LayerState(medians=medians, global_median=gmed, mean=mean,
+                            std=std, params=params, log_delta=log_delta,
+                            ll_fit=float(lls[-1]), n_components=k)
+        self._seed_stats(state, sample, float(fs.ts.max()) if len(fs.ts)
+                         else float("-inf"))
+        return state
+
+    def _seed_stats(self, state: _LayerState, sample: np.ndarray,
+                    last_ts: float) -> None:
+        """(Re)initialise the incremental-EM statistics from the sample a
+        cold fit just converged on, under the fitted params."""
+        if not self.incremental:
+            return
+        state.stats, _ = stats_from_batch(self._tensor(sample),
+                                          state.params)
+        state.n_seen = sample.shape[0]
+        state.last_ts = last_ts
+        state.folds_since_anchor = 0
+
+    # -- lifecycle ------------------------------------------------------------
+    def warmup(self, agg: FleetAggregator) -> List[Layer]:
+        """Fit baselines + cold GMMs on the current (assumed-clean) windows
+        of every layer not yet modelled. Idempotent: call again on later
+        ticks so slow layers (device telemetry trickles in at its polling
+        interval) get fitted once they reach min_events instead of staying
+        unmonitored forever. Returns the newly fitted layers."""
+        fitted = []
+        for layer in self.LAYERS:
+            if layer in self.states:
+                continue
+            window = agg.window(layer)
+            if len(window) < self.min_events:
+                continue
+            fs = _raw_features(layer, window.view())
+            if fs is None or fs.X.shape[0] < self.min_events:
+                continue
+            self.states[layer] = self._cold_fit(layer, fs)
+            fitted.append(layer)
+        return fitted
+
+    @property
+    def warmed(self) -> bool:
+        return bool(self.states)
+
+    # -- per-window detection --------------------------------------------------
+    def detect(self, agg: FleetAggregator, refit: bool = True
+               ) -> Dict[Layer, WindowDetection]:
+        """Score every fitted layer's current window; then (optionally) track
+        the model: warm EM refit on the inlier rows, cold refit on drift."""
+        out: Dict[Layer, WindowDetection] = {}
+        for layer, state in self.states.items():
+            fs = self._featurize(agg.window(layer), state)
+            if fs is None or not len(fs.X):
+                continue
+            Xs = ((fs.X - state.mean) / state.std).astype(np.float32)
+            scores = self._score_bucketed(Xs, state.params)
+            flags = scores < state.log_delta
+            mode = "none"
+            if refit and self.track:
+                mode = self._track(layer, state, Xs, flags, scores, fs.ts)
+            out[layer] = WindowDetection(
+                layer=layer, flags=flags, scores=scores,
+                log_delta=state.log_delta, steps=fs.steps, nodes=fs.nodes,
+                ts=fs.ts, refit=mode)
+        return out
+
+    def _track(self, layer: Layer, state: _LayerState, Xs: np.ndarray,
+               flags: np.ndarray, scores: np.ndarray,
+               ts: np.ndarray) -> str:
+        """Model maintenance after scoring: warm refit on inliers; full
+        refit + threshold recalibration when the inlier likelihood collapses
+        (concept drift, not a transient anomaly burst). Warm refits also
+        nudge the threshold toward the window's contamination quantile
+        (clamped to ``delta_step`` nats per refit) so slow benign drift
+        cannot accumulate flags window after window."""
+        inliers = Xs[~flags]
+        if inliers.shape[0] < max(8 * state.n_components, 16):
+            return "none"
+        sample = self._fit_sample(inliers)
+        ll_now = float(total_log_likelihood(self._tensor(sample),
+                                            state.params))
+        if ll_now < state.ll_fit - self.drift_tol:
+            params, lls = fit_gmm_streaming(
+                self._tensor(sample), self._next_seed(),
+                n_components=state.n_components, n_iters=self.cold_iters,
+                reg=self.reg)
+            rescored = self._score_bucketed(sample, params)
+            state.params = params
+            state.log_delta = float(np.quantile(rescored, self.contamination))
+            state.ll_fit = float(lls[-1])
+            state.cold_refits += 1
+            self._seed_stats(state, sample,
+                             float(ts.max()) if len(ts) else state.last_ts)
+            return "cold"
+        flag_frac = float(np.count_nonzero(flags)) / max(1, flags.shape[0])
+        n_now = int(Xs.shape[0])
+        steady = (n_now - state.last_n) <= self.fold_growth_tol * n_now
+        state.last_n = n_now
+        if (self.incremental and state.stats is not None and steady
+                and state.folds_since_anchor < self.anchor_every
+                and flag_frac <= self.anchor_flag_frac):
+            mode = self._fold_new(state, Xs, flags, ts)
+        else:
+            params, lls = fit_gmm_streaming(
+                self._tensor(sample), self._next_seed(),
+                n_components=state.n_components, n_iters=self.refit_iters,
+                reg=self.reg, params0=state.params)
+            state.params = params
+            state.ll_fit = float(lls[-1])
+            state.warm_refits += 1
+            self._seed_stats(state, sample,
+                             float(ts.max()) if len(ts) else state.last_ts)
+            mode = "warm"
+        # threshold tracking: move delta toward the contamination quantile
+        # of ALL scored rows (never inliers-only — censoring the tail and
+        # re-quantiling it ratchets the threshold into the bulk). The
+        # clamped step follows slow drift but is negligible against the
+        # tens-to-hundreds of nats a genuine burst sits below delta.
+        target = float(np.quantile(scores, self.contamination))
+        state.log_delta += float(np.clip(target - state.log_delta,
+                                         -self.delta_step, self.delta_step))
+        return mode
+
+    def _fold_new(self, state: _LayerState, Xs: np.ndarray,
+                  flags: np.ndarray, ts: np.ndarray) -> str:
+        """Incremental warm refit (stepwise EM): one fused E-step pass over
+        the inlier rows NEWER than the last fold, convex-folded into the
+        persistent per-sample statistics, then a tiny host-side M-step.
+
+        Against the bootstrap warm refit this replaces, the kernel work per
+        tick drops from ``refit_iters`` passes over fit_rows rows to one
+        pass over only the rows that arrived since the previous tick — and
+        the rows are padded to a power-of-two bucket, the true count passed
+        as ``nvalid`` (see repro_torch.detect.cache)."""
+        new = (~flags) & (ts > state.last_ts)
+        n_new = int(np.count_nonzero(new))
+        if n_new < max(2 * state.n_components, 4):
+            return "warm"  # nothing fresh to learn from; threshold still tracks
+        Xp, _ = pad_to_bucket(np.ascontiguousarray(Xs[new], dtype=np.float32))
+        SHAPE_CACHE.record("em-stats", Xp.shape[0], Xp.shape[1],
+                           state.n_components)
+        batch, ll_new = stats_from_batch(self._tensor(Xp), state.params,
+                                         nvalid=n_new)
+        # fold weight matched to the batch's share of the LIVE window (not
+        # just of history): the model approximates the window average it
+        # scores against, instead of exponentially forgetting rows the
+        # window still holds
+        rho = min(0.5, n_new / max(1, Xs.shape[0], state.n_seen + n_new))
+        state.stats = fold_stats(state.stats, batch, rho)
+        state.params = params_from_stats(state.stats, self.reg)
+        # drift reference tracks the same convex combination as the stats:
+        # a genuine likelihood collapse still opens a >drift_tol gap because
+        # rho is bounded by the window/history ratio
+        state.ll_fit = (1.0 - rho) * state.ll_fit + rho * ll_new
+        state.n_seen = min(state.n_seen + n_new, self.n_seen_cap)
+        state.last_ts = float(ts.max())
+        state.folds_since_anchor += 1
+        state.warm_refits += 1
+        return "warm"
+
+    def stats(self) -> Dict[str, object]:
+        return {layer.value: {"k": s.n_components,
+                              "log_delta": s.log_delta,
+                              "ll_fit": s.ll_fit,
+                              "warm_refits": s.warm_refits,
+                              "cold_refits": s.cold_refits,
+                              "n_seen": s.n_seen}
+                for layer, s in self.states.items()}

@@ -1,6 +1,8 @@
-"""The port on the card: the CUDA kernels against their plain versions, the
-wrappers' input checks, the CUDA-graphed train step against the eager one,
-and a GMM fit on the card against the same fit on the CPU.
+"""The port on the card: the CUDA kernels against their plain versions
+(the EM kernels with poisoned padding rows, and bitwise repeatable), the
+wrappers' input checks, the CUDA-graphed train step against the eager one, a
+GMM fit and a streaming detector's warmup and tick on the card against the
+same on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -12,7 +14,9 @@ Tolerances: the kernels' are those of tests/test_kernels.py (float32 rtol
 1e-5 / atol 1e-4, bf16 X rtol 5e-2 / atol 5e-1); the graphed step runs the
 eager step's kernels, so its loss and gradients agree within float32
 rounding; the GMM fit compounds 60 EM iterations of float32 sums taken in
-another order on each device, so it is held at rtol 1e-3.
+another order on each device, so it is held at rtol 1e-3. The EM kernels'
+are tests/test_kernels.py's `_assert_tuple_close`: rtol 1e-4 / atol 1e-4 x
+max(|want|, 1).
 """
 import numpy as np
 import pytest
@@ -21,9 +25,12 @@ import torch
 from repro_torch.config import get_arch, reduced
 from repro_torch.core.gmm import GMM
 from repro_torch.data import SyntheticLMData
+from repro_torch.core.events import Event, Layer
 from repro_torch.kernels import gmm_score as kmod
+from repro_torch.kernels import gmm_stats as smod
 from repro_torch.kernels import ops
 from repro_torch.models.model import Runtime, batch_to_device, init_params
+from repro_torch.stream import FleetAggregator, OnlineGMMDetector, wire
 from repro_torch.train.step import CudaGraphed, make_loss_and_grads
 
 pytestmark = pytest.mark.gpu
@@ -119,3 +126,94 @@ def test_gmm_fit_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(on_card.ll, on_cpu.ll, rtol=1e-3)
     np.testing.assert_allclose(on_card.score(X), on_cpu.score(X), rtol=1e-3,
                                atol=1e-3)
+
+
+EM_CASES = [  # (N, D, K, nvalid): the kernel tests' grids and edge cases
+    (128, 2, 2, None), (1000, 4, 3, None), (4096, 8, 8, None),
+    (777, 3, 5, None), (2048, 16, 4, None), (512, 8, 1, None),
+    (64, 5, 1, None), (256, 4, 3, 156), (512, 8, 1, 128), (1024, 2, 4, 624),
+    (256, 4, 3, 0), (0, 4, 3, None), (1000, 32, 16, None),
+    (3000, 32, 16, 1777)]
+
+
+def _assert_tuple_close(got, want):
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()) if w.numel() else 0.0, 1.0)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("op", ["gmm_stats", "gmm_update"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_em_kernels_match_plain_and_repeat_bitwise(cuda, op, dtype):
+    fn = getattr(ops, op)
+    before = smod.LAUNCHES[op]
+    for N, D, K, nvalid in EM_CASES:
+        X, means, U = (torch.as_tensor(a, device=cuda)
+                       for a in make_params(N, D, K, seed=N + D))
+        X = X.to(getattr(torch, dtype))
+        if nvalid is not None:
+            X[nvalid:] = 1e6  # a leak through the mask is unmissable
+        log_w = torch.log(torch.full((K,), 1.0 / K, device=cuda))
+        want = fn(X, log_w, means, U, nvalid=nvalid, backend="plain")
+        got = fn(X, log_w, means, U, nvalid=nvalid)
+        again = fn(X, log_w, means, U, nvalid=nvalid)
+        _assert_tuple_close(got, want)
+        for g, g2 in zip(got, again):
+            assert torch.equal(g, g2)
+            assert torch.isfinite(g).all()
+    assert smod.LAUNCHES[op] == before + 2 * len(EM_CASES)
+
+
+def test_em_wrappers_check_their_inputs(cuda):
+    X, means, U = (torch.as_tensor(a, device=cuda)
+                   for a in make_params(64, 4, 2))
+    log_w = torch.zeros(2, device=cuda)
+    with pytest.raises(ValueError, match="nvalid"):
+        smod.gmm_stats_cuda(X, log_w, means, U, nvalid=-1)
+    with pytest.raises(ValueError, match="log_weights"):
+        smod.gmm_update_cuda(X, torch.zeros(3, device=cuda), means, U)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        smod.gmm_stats_cuda(X.double(), log_w, means, U)
+
+
+def _trace(rng, lo, hi, fault=()):
+    return [Event(layer=layer, name=name, ts=0.05 * s, step=s,
+                  dur=base * (8.0 if s in fault else 1.0)
+                  * float(rng.lognormal(0.0, 0.05)))
+            for s in range(lo, hi)
+            for layer, name, base in ((Layer.STEP, "train_step", 3e-3),
+                                      (Layer.XLA, "executable_run", 2e-3))]
+
+
+def test_online_detector_on_the_card_matches_the_cpu(cuda):
+    """Warmup (cold fits through gmm_update, statistics through gmm_stats)
+    and one tick on the card against the same on the CPU; both detectors
+    draw the same seeds and bootstrap rows, so they differ only by float32
+    sums taken in another order."""
+    rng = np.random.default_rng(0)
+    bufs = [wire.encode_events(_trace(rng, 0, 100), node_id=0, seq=0),
+            wire.encode_events(_trace(rng, 100, 130, range(110, 120)),
+                               node_id=0, seq=1)]
+    before = dict(smod.LAUNCHES)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        agg = FleetAggregator(horizon_s=1000.0)
+        agg.ingest(bufs[0])
+        det = OnlineGMMDetector(n_components=3, min_events=32, seed=0,
+                                device=dev)
+        det.warmup(agg)
+        agg.ingest(bufs[1])
+        deltas = {layer: s.log_delta for layer, s in det.states.items()}
+        out[dev.type] = (deltas, det.detect(agg))
+    assert smod.LAUNCHES["gmm_update"] > before["gmm_update"]
+    assert smod.LAUNCHES["gmm_stats"] > before["gmm_stats"]
+    (_, gdet), (deltas, cdet) = out["cuda"], out["cpu"]
+    for layer, c in cdet.items():
+        g = gdet[layer]
+        assert g.refit == c.refit
+        np.testing.assert_allclose(g.log_delta, c.log_delta, atol=1e-3)
+        np.testing.assert_allclose(g.scores, c.scores, rtol=1e-3, atol=1e-3)
+        near = np.abs(c.scores - deltas[layer]) < 1e-3
+        assert not ((g.flags != c.flags) & ~near).any()
+    assert set(range(110, 120)) <= set(
+        gdet[Layer.STEP].anomalous_steps().tolist())

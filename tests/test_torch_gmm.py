@@ -133,3 +133,99 @@ def test_gmm_without_a_card_needs_an_explicit_cpu():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tgmm.GMM()
+
+
+# -- streaming and incremental EM -------------------------------------------
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_fit_gmm_streaming_matches_jax_from_same_params0(K):
+    """The same EM through one fused pass per iteration (gmm_update): the
+    reference's test_streaming_em_matches_batch_em tolerances, means
+    rtol/atol 1e-3, the per-row ll trace 1e-4."""
+    X = mixture(900, 4, K, seed=20 + K)
+    reg = 1e-2
+    p0 = jax_params0(X, K, reg)
+    jp, jll = jgmm.fit_gmm_streaming(jnp.asarray(X), jax.random.PRNGKey(0),
+                                     n_components=K, n_iters=15, reg=reg,
+                                     params0=p0)
+    tp, tll = tgmm.fit_gmm_streaming(
+        torch.as_tensor(X), 0, n_components=K, n_iters=15, reg=reg,
+        params0=gmm_params_from_numpy(as_np(p0), CPU))
+    np.testing.assert_allclose(tp.means.numpy(), np.asarray(jp.means),
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(tp.log_weights.numpy(),
+                               np.asarray(jp.log_weights), rtol=1e-3,
+                               atol=1e-3)
+    assert tll.shape == (15,)
+    np.testing.assert_allclose(tll.numpy(), np.asarray(jll), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_fit_gmm_streaming_matches_batch_em():
+    """One fused pass per iteration reproduces the port's batch EM."""
+    X = mixture(800, 3, 3, seed=31)
+    p0 = gmm_params_from_numpy(as_np(jax_params0(X, 3, 1e-6)), CPU)
+    pb, llb = tgmm.fit_gmm(torch.as_tensor(X), 0, n_components=3,
+                           n_iters=15, params0=p0)
+    ps, lls = tgmm.fit_gmm_streaming(torch.as_tensor(X), 0, n_components=3,
+                                     n_iters=15, params0=p0)
+    np.testing.assert_allclose(ps.means.numpy(), pb.means.numpy(),
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(lls[-1].item(), llb[-1].item(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_fit_gmm_streaming_cold_init_improves_the_likelihood():
+    X = mixture(600, 2, 2, seed=32)
+    _, lls = tgmm.fit_gmm_streaming(torch.as_tensor(X), 3, n_components=2,
+                                    n_iters=10)
+    assert np.all(np.diff(lls.numpy()) > -1e-3)  # EM is monotone
+    p, _ = tgmm.fit_gmm_streaming(torch.as_tensor(X), 0, n_components=2,
+                                  n_iters=2)
+    with pytest.raises(ValueError, match="components"):
+        tgmm.fit_gmm_streaming(torch.as_tensor(X), 0, n_components=3,
+                               n_iters=2, params0=p)
+
+
+@pytest.mark.parametrize("nvalid", [None, 413])
+def test_incremental_em_matches_jax(nvalid):
+    """stats_from_batch (with and without a padded bucket), fold_stats and
+    params_from_stats against the reference, within 1e-4."""
+    X = mixture(512, 4, 3, seed=33)
+    if nvalid is not None:
+        X[nvalid:] = 0.0  # pad_to_bucket's zero padding
+    jp, _ = jgmm.fit_gmm(jnp.asarray(X[:400]), jax.random.PRNGKey(0),
+                         n_components=3, n_iters=10, reg=1e-2)
+    tp = gmm_params_from_numpy(as_np(jp), CPU)
+    js, jll = jgmm.stats_from_batch(jnp.asarray(X), jp, nvalid=nvalid)
+    ts, tll = tgmm.stats_from_batch(torch.as_tensor(X), tp, nvalid=nvalid)
+    for name, g, w in zip(tgmm.SuffStats._fields, ts, js):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    np.testing.assert_allclose(tll, jll, rtol=1e-4, atol=1e-4)
+    jold, _ = jgmm.stats_from_batch(jnp.asarray(X[:200]), jp)
+    told, _ = tgmm.stats_from_batch(torch.as_tensor(X[:200]), tp)
+    jf = jgmm.fold_stats(jold, js, 0.3)
+    tf = tgmm.fold_stats(told, ts, 0.3)
+    for name, g, w in zip(tgmm.SuffStats._fields, tf, jf):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    jq = jgmm.params_from_stats(jf, 1e-2)
+    tq = tgmm.params_from_stats(tf, 1e-2)
+    for name, g, w in zip(tgmm.GMMParams._fields, tq, jq):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
+def test_degenerate_streaming_refit_gives_nan_not_an_error():
+    """A drift refit on a degenerate sample must not raise: the failed
+    Cholesky turns into NaN parameters, as in the reference."""
+    X = np.repeat(np.random.default_rng(3).standard_normal((2, 3)), 100,
+                  axis=0).astype(np.float32)
+    p, lls = tgmm.fit_gmm_streaming(torch.as_tensor(X), 0, n_components=3,
+                                    n_iters=5, reg=0.0)
+    jp, jll = jgmm.fit_gmm_streaming(jnp.asarray(X), jax.random.PRNGKey(0),
+                                     n_components=3, n_iters=5, reg=0.0)
+    assert lls.shape == (5,)
+    assert np.isnan(p.prec_chol.numpy()).any() == np.isnan(
+        np.asarray(jp.prec_chol)).any()

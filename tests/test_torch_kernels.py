@@ -1,12 +1,14 @@
 """The port's GMM kernels against the JAX package's: the plain PyTorch
 versions against `repro.kernels.ref` and the Pallas kernels in interpret
-mode, on the same numpy inputs and the kernel tests' shape grid; the
+mode, on the same numpy inputs and the kernel tests' shape grids; the
 dispatch. The CUDA kernels against the plain versions are in
 tests/test_torch_cuda.py, which needs a card and no JAX.
 
 Tolerances are those of tests/test_kernels.py: float32 rtol 1e-5 / atol
 1e-4 (float32 arithmetic in a different summation order), bf16 X rtol 5e-2
-/ atol 5e-1; argmax may differ only at near-ties.
+/ atol 5e-1; argmax may differ only at near-ties. The E-step statistics
+(sums over all rows) are held at rtol 1e-4 / atol 1e-4 x max(|want|, 1),
+that file's `_assert_tuple_close`.
 """
 import numpy as np
 import pytest
@@ -18,7 +20,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.gmm_score import gmm_best_pallas, gmm_score_pallas  # noqa: E402
+from repro.kernels.gmm_stats import gmm_stats_pallas, gmm_update_pallas  # noqa: E402
 from repro_torch.kernels import gmm_score as kmod  # noqa: E402
+from repro_torch.kernels import gmm_stats as smod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 SHAPES = [(128, 2, 2), (1000, 4, 3), (4096, 8, 8), (777, 3, 5),
@@ -148,3 +152,136 @@ def test_cuda_wrappers_refuse_cpu_tensors(fn):
     X, means, U = make_params(16, 2, 2)
     with pytest.raises(ValueError, match="CUDA kernel"):
         fn(t(X), t(means), t(U))
+
+
+# -- E-step statistics and the fused EM iteration ---------------------------
+
+# tests/test_kernels.py's grids: K=1 and non-power-of-two N included
+UPDATE_SHAPES = [(256, 2, 2), (1000, 4, 3), (777, 3, 5), (512, 8, 1),
+                 (64, 5, 1)]
+# the bucket shapes the detection plane launches, with nvalid fractions
+BUCKETS = [(256, 4, 3), (512, 8, 1), (1024, 2, 4)]
+STATS_NAMES = {"stats": ["nk", "sx", "sxx", "ll"],
+               "update": ["nk", "means", "cov", "ll"]}
+
+
+def log_w(K):
+    return np.log(np.full((K,), 1.0 / K, dtype=np.float32))
+
+
+def assert_tuple_close(got, want, names, rtol=1e-4, atol=1e-4):
+    for g, w, name in zip(got, want, names):
+        w = np.asarray(w)
+        scale = max(float(np.max(np.abs(w))) if w.size else 0.0, 1.0)
+        np.testing.assert_allclose(np.asarray(g), w, rtol=rtol,
+                                   atol=atol * scale, err_msg=name)
+
+
+def jax_stats(op, X, lw, means, U, nvalid, oracle):
+    Xj = jnp.asarray(X)
+    if oracle == "jnp":
+        fn = jref.gmm_stats_ref if op == "stats" else jref.gmm_update_ref
+        return fn(Xj, jnp.asarray(lw), means, U, nvalid)
+    fn = gmm_stats_pallas if op == "stats" else gmm_update_pallas
+    return fn(Xj, jnp.asarray(lw), means, U, nvalid=nvalid, block_n=128,
+              interpret=True)
+
+
+def torch_stats(op, X, lw, means, U, nvalid=None):
+    fn = ref.gmm_stats_ref if op == "stats" else ref.gmm_update_ref
+    return [o.numpy() for o in fn(t(X), t(lw), t(means), t(U), nvalid)]
+
+
+@pytest.mark.parametrize("oracle", ["jnp", "pallas"])
+@pytest.mark.parametrize("N,D,K", SHAPES[:5])
+def test_gmm_stats_ref_matches_jax(N, D, K, oracle):
+    X, means, U = make_params(N, D, K, seed=2)
+    got = torch_stats("stats", X, log_w(K), means, U)
+    assert_tuple_close(got, jax_stats("stats", X, log_w(K), means, U, None,
+                                      oracle), STATS_NAMES["stats"])
+
+
+@pytest.mark.parametrize("oracle", ["jnp", "pallas"])
+@pytest.mark.parametrize("N,D,K", UPDATE_SHAPES)
+def test_gmm_update_ref_matches_jax(N, D, K, oracle):
+    """One EM iteration in one pass: (nk, means', cov', ll)."""
+    X, means, U = make_params(N, D, K, seed=4)
+    got = torch_stats("update", X, log_w(K), means, U)
+    assert_tuple_close(got, jax_stats("update", X, log_w(K), means, U, None,
+                                      oracle), STATS_NAMES["update"])
+
+
+@pytest.mark.parametrize("op", ["stats", "update"])
+@pytest.mark.parametrize("frac", [1.0, 0.61, 0.25])
+@pytest.mark.parametrize("N,D,K", BUCKETS)
+def test_nvalid_masks_poisoned_padding_like_pallas(N, D, K, frac, op):
+    """A padded call with the true row count as nvalid equals the Pallas
+    kernel's padded call and the oracle on the true rows alone; the padding
+    rows are poisoned to 1e6, so any leak through the mask shows."""
+    nvalid = max(int(N * frac), 1)
+    X, means, U = make_params(N, D, K, seed=5)
+    X[nvalid:] = 1e6
+    got = torch_stats(op, X, log_w(K), means, U, nvalid)
+    names = STATS_NAMES[op]
+    assert_tuple_close(got, jax_stats(op, X, log_w(K), means, U, nvalid,
+                                      "pallas"), names)
+    assert_tuple_close(got, jax_stats(op, X[:nvalid], log_w(K), means, U,
+                                      None, "jnp"), names)
+
+
+@pytest.mark.parametrize("op", ["stats", "update"])
+def test_nvalid_zero_and_empty_give_zeros(op):
+    """nvalid=0 (an empty window padded to a bucket) and N=0 contribute
+    nothing; update's regularised M-step keeps means and cov finite (0)."""
+    X, means, U = make_params(256, 4, 3, seed=6)
+    for Xi, nvalid in ((X, 0), (X[:0], None)):
+        got = torch_stats(op, Xi, log_w(3), means, U, nvalid)
+        for o in got:
+            np.testing.assert_array_equal(o, 0.0)
+    want = jax_stats(op, X, log_w(3), means, U, 0, "pallas")
+    assert_tuple_close(torch_stats(op, X, log_w(3), means, U, 0), want,
+                       STATS_NAMES[op])
+
+
+def test_gmm_stats_bf16_x_matches_pallas():
+    X, means, U = make_params(512, 6, 4, seed=8)
+    Xj = jnp.asarray(X).astype("bfloat16")
+    want = gmm_stats_pallas(Xj, jnp.asarray(log_w(4)), means, U,
+                            block_n=128, interpret=True)
+    got = ref.gmm_stats_ref(t(X).to(torch.bfloat16), t(log_w(4)), t(means),
+                            t(U))
+    assert_tuple_close([g.numpy() for g in got], want, STATS_NAMES["stats"])
+
+
+def test_ops_stats_dispatch_matches_plain_on_cpu():
+    """CPU tensors take the plain versions through ops, with nvalid."""
+    X, means, U = make_params(512, 6, 4, seed=7)
+    args = (t(X), t(log_w(4)), t(means), t(U))
+    before_ref, before_k = dict(ref.CALLS), dict(smod.LAUNCHES)
+    got = ops.gmm_update(*args, nvalid=300)
+    want = ref.gmm_update_ref(*args, 300)
+    ops.gmm_stats(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert ref.CALLS["gmm_update_ref"] == before_ref["gmm_update_ref"] + 2
+    assert ref.CALLS["gmm_stats_ref"] == before_ref["gmm_stats_ref"] + 1
+    assert smod.LAUNCHES == before_k
+
+
+@pytest.mark.parametrize("fn", [smod.gmm_stats_cuda, smod.gmm_update_cuda])
+def test_stats_cuda_wrappers_refuse_cpu_tensors(fn):
+    X, means, U = make_params(16, 2, 2)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        fn(t(X), t(log_w(2)), t(means), t(U))
+
+
+def test_stats_grid_depends_on_the_shape_alone():
+    """The first pass's grid (hence the order of every sum) is fixed by
+    (N, D, K): one block per 256-row tile, capped so the partials stay
+    under the workspace limit; an empty input still gets one block."""
+    assert smod.grid_blocks(0, 4, 3) == 1
+    assert smod.grid_blocks(2048, 4, 3) == 8
+    assert smod.grid_blocks(1 << 20, 4, 3) == smod.MAX_BLOCKS
+    e = smod.n_entries(32, 16)
+    assert e == 16 + 16 * 32 + 16 * 32 * 32 + 1
+    assert smod.grid_blocks(1 << 20, 32, 16) * e <= smod.WORK_FLOATS

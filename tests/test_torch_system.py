@@ -40,7 +40,9 @@ CPU = "cpu"
 def test_monitored_training_detects_injected_faults():
     """Port of tests/test_system.py::test_monitored_training_detects_injected_
     faults, same thresholds: anomalous steps must overlap the injected
-    windows far above chance, and the governor must act."""
+    windows far above chance, and the governor must act. The step runs on
+    one thread: timed steps that wait on a barrier of several threads on a
+    loaded host vary by more than the injected latency."""
     cfg = reduced(get_arch("gpt2"))
     tcfg = TrainConfig(learning_rate=1e-3, total_steps=120, warmup_steps=5)
     opt = make_optimizer_for(tcfg)
@@ -52,12 +54,17 @@ def test_monitored_training_detects_injected_faults():
     inj = FaultInjector.random_schedule(
         120, ["op_latency"], seed=7, anomaly_fraction=1 / 6,
         magnitudes={"op_latency": 0.03})
-    with col.monitoring():
-        fn = col.observe_step_fn(step_fn)
-        for s in range(120):
-            inj.apply(s, col)
-            state, m = fn(state, data.batch(s))
-        inj.clear(col)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with col.monitoring():
+            fn = col.observe_step_fn(step_fn)
+            for s in range(120):
+                inj.apply(s, col)
+                state, m = fn(state, data.batch(s))
+            inj.clear(col)
+    finally:
+        torch.set_num_threads(threads)
     events = col.drain()
     labels = inj.labels(120)
     clean = [e for e in events if 0 <= e.step < 120 and not labels[e.step]]
