@@ -7,7 +7,9 @@ Phases, each printing one JSON line of its own:
 
 1. ``build``: compile every CUDA source of ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together) and
-   report the seconds and the ptxas register / shared-memory lines.
+   report the seconds and each kernel instantiation's registers, stack
+   and spill bytes from ptxas; every specialised instantiation must be
+   there, with no stack frame and no spill.
 2. ``kernel_check``: every kernel against its plain PyTorch version on the
    card. ``gmm_score`` / ``gmm_best``: the kernel tests' shape grid (up to
    D=32, K=16), N=0, the main path's D=4/K=4 shapes (N = 4096 and 2^20),
@@ -19,7 +21,14 @@ Phases, each printing one JSON line of its own:
    0.25} with the padding rows poisoned to 1e6), nvalid=0, N=0, bf16 X,
    D=32/K=16 and N=2^20 at D=4/K=3; rtol 1e-4 / atol 1e-4 x max(|want|, 1)
    (tests/test_kernels.py's `_assert_tuple_close`), and every case called
-   twice: the two outputs must be bitwise equal.
+   twice: the two outputs must be bitwise equal. Then, for all four
+   kernels on both sides of the specialised / general boundary: U in the
+   EM loop's layout (a transposed view) must give bitwise the outputs of a
+   contiguous U, and a NaN component of U NaN exactly where the plain
+   version gives it; shapes at the boundary must launch the variant the
+   wrappers' list names; and the EM kernels captured in one CUDA graph
+   must equal the eager call bit for bit over 4 replays, the last on new
+   rows.
 3. ``graph_check``: the train step's CUDA-graphed forward and backward
    against the eager one at full width, on new batches and perturbed weights
    (loss within 1e-3 relative, gradients within 1e-2 of their norm).
@@ -52,15 +61,20 @@ Phases, each printing one JSON line of its own:
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
 
+The main path and the stream path must launch only specialised kernels
+(the wrappers' ``VARIANTS``, set to 0 before each path and read after).
 Then the ``kernels`` line (each kernel's launches on its path — the main
 path for the scoring kernels, the stream path for the EM kernels — its
 largest error against the plain version at that path's largest shape, its
 device time per wrapper call, the plain version's, its bound, and beside
-them the launch alone and the eager per-call time), the card's name and
-power limit as nvidia-smi prints them, and as the last line
-``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
-non-zero before that line. TF32 is off for matmuls (PyTorch's default) and
-set off for cuDNN here, so float32 comparisons are float32.
+them the launch alone, the eager per-call time, the kernels and memsets a
+wrapper call puts on the stream, counted with torch.profiler, which must be
+one kernel and, for the EM kernels, one memset, and the variants each path
+launched), the card's name and power limit as nvidia-smi prints them, and
+as the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
+failure exits non-zero before that line. TF32 is off for matmuls
+(PyTorch's default) and set off for cuDNN here, so float32 comparisons are
+float32.
 """
 from __future__ import annotations
 
@@ -128,6 +142,50 @@ def make_params(N, D, K, seed, dtype):
         upper=False).transpose(-1, -2)
     return (X.to(dtype).cuda(), means.cuda(),
             U.to(torch.float32).contiguous().cuda())
+
+
+def path_layout(U):
+    """U as the EM loop hands it over: the transpose of a contiguous tensor
+    (`_prec_chol_from_cov` returns L^-T as a view), the same values."""
+    return U.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def ptxas_summary(logs):
+    """Registers, stack and spill bytes of every kernel instantiation from
+    nvcc's -Xptxas=-v output, keyed by a short name such as
+    ``em_fixed<f32,4,3>`` (``score_fixed<bf16,4,3,1>``: the last number of
+    a scoring kernel is BEST)."""
+    import re
+
+    out, name = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(_Z\w+)", ln)
+            if m:
+                mangled = m.group(1)
+                base = re.search(r"(score_fixed|score_general|em_fixed|"
+                                 r"em_general)", mangled)
+                if base is None:
+                    name = None
+                    continue
+                tail = mangled[base.end():]
+                args = re.findall(r"L[ib](\d+)E", tail.split("EEv")[0])
+                dtype = "bf16" if "bfloat16" in tail.split("EEv")[0] else "f32"
+                name = f"{base.group(1)}<{','.join([dtype, *args])}>"
+                out.setdefault(name, {})
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m:
+                out[name].update(stack=int(m.group(1)),
+                                 spill=int(m.group(2)) + int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def compare(name, got, want, rtol, atol, logp=None):
@@ -248,6 +306,162 @@ def check_ties_and_nan(ops):
         raise SmokeFailure("gmm_best differs from plain on a NaN component")
 
 
+def em_inputs(N, D, K, seed):
+    import torch
+
+    X, means, U = make_params(N, D, K, seed, torch.float32)
+    return X, torch.log(torch.full((K,), 1.0 / K, device=X.device)), means, U
+
+
+def check_layout_and_nan(ops):
+    """On both sides of the specialised / general boundary: U as the EM
+    loop hands it over (a transposed view) gives bitwise the outputs of a
+    contiguous U, within tolerance of the plain version; a NaN U (the
+    all-NaN factor of a non-PD covariance) gives NaN exactly where the
+    plain version does, and elsewhere agrees with it. Returns the cases."""
+    import torch
+
+    cases = 0
+    for N, D, K in ((227, 4, 3), (2048, 3, 3), (777, 5, 3), (500, 4, 6)):
+        X, log_w, means, U = em_inputs(N, D, K, 31 + D + K)
+        Ut = path_layout(U)
+        assert not Ut.is_contiguous()
+        for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update"):
+            fn = getattr(ops, name)
+            args = (X, log_w, means) if name in ("gmm_stats",
+                                                  "gmm_update") else (X, means)
+            got, want = fn(*args, Ut), fn(*args, U)
+            plain = fn(*args, Ut, backend="plain")
+            got, want, plain = ((o,) if torch.is_tensor(o) else tuple(o)
+                                for o in (got, want, plain))
+            for i, (g, w, p) in enumerate(zip(got, want, plain)):
+                if not torch.equal(g, w):
+                    raise SmokeFailure(f"{name} N={N} D={D} K={K} output {i}:"
+                                       " a transposed U differs from a "
+                                       "contiguous one")
+                if g.dtype == torch.float32:
+                    scale = max(float(p.abs().max()), 1.0)
+                    rtol, atol = ((1e-5, 1e-4) if name in ("gmm_score",
+                                                           "gmm_best")
+                                  else (1e-4, 1e-4 * scale))
+                    compare(f"{name} transposed U N={N} D={D} K={K} "
+                            f"output {i}", g, p, rtol, atol)
+            Un = U.clone()
+            Un[1] = float("nan")
+            got = fn(*args, Un)
+            plain = fn(*args, Un, backend="plain")
+            got, plain = ((o,) if torch.is_tensor(o) else tuple(o)
+                          for o in (got, plain))
+            for i, (g, p) in enumerate(zip(got, plain)):
+                if g.dtype != torch.float32:
+                    if not torch.equal(g, p):
+                        raise SmokeFailure(f"{name} NaN U N={N} D={D} K={K}:"
+                                           " argmax differs from plain")
+                    continue
+                nan = torch.isnan(p)
+                if not torch.equal(torch.isnan(g), nan) or not bool(
+                        nan.any()):
+                    raise SmokeFailure(f"{name} NaN U N={N} D={D} K={K} "
+                                       f"output {i}: NaNs differ from plain")
+                if not bool(nan.all()):
+                    compare(f"{name} NaN U N={N} D={D} K={K} output {i}",
+                            g[~nan], p[~nan], 1e-5, 1e-4)
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def check_boundary(ops, kmod, smod):
+    """Shapes on both sides of the specialised / general boundary launch
+    the variant the wrappers' list says, and agree with the plain
+    versions. Returns {shape: variant}."""
+    import torch
+
+    seen = {}
+    for N, D, K in ((1000, 4, 4), (1000, 5, 4), (1000, 4, 5), (1000, 2, 1),
+                    (1000, 1, 3), (1000, 3, 4)):
+        want = kmod.variant(D, K)
+        before = ({k: dict(v) for k, v in kmod.VARIANTS.items()},
+                  {k: dict(v) for k, v in smod.VARIANTS.items()})
+        check_case(ops, N, D, K, torch.float32, seed=70 + D + K)
+        check_em_case(ops, N, D, K, torch.float32, seed=80 + D + K)
+        for counts, old in ((kmod.VARIANTS, before[0]),
+                            (smod.VARIANTS, before[1])):
+            for name, v in counts.items():
+                if v[want] - old[name][want] < 1 or sum(v.values()) - sum(
+                        old[name].values()) != v[want] - old[name][want]:
+                    raise SmokeFailure(f"{name} at D={D} K={K} did not "
+                                       f"launch only the {want} kernel")
+        seen[f"D={D} K={K}"] = want
+    return seen
+
+
+def check_em_graph_replay(ops):
+    """The EM kernels captured in one CUDA graph (the counter's memset and
+    the launch) and replayed: every replay bitwise equal to the eager call,
+    also after new rows are copied into the captured input, so a stale
+    counter or a last block reading stale partials would show. Returns the
+    replays."""
+    import torch
+
+    replays = 0
+    for N, D, K in ((65536, 4, 3), (2048, 4, 3), (3000, 8, 8)):
+        for name in ("gmm_stats", "gmm_update"):
+            fn = getattr(ops, name)
+            X, log_w, means, U = em_inputs(N, D, K, 41 + N % 97)
+            U = path_layout(U)
+            fn(X, log_w, means, U)  # warm-up outside the capture
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = fn(X, log_w, means, U)
+            for r in range(4):
+                if r == 3:  # new rows into the captured input
+                    X.copy_(make_params(N, D, K, 99, torch.float32)[0])
+                graph.replay()
+                eager = fn(X, log_w, means, U)
+                torch.cuda.synchronize()
+                for i, (g, e) in enumerate(zip(captured, eager)):
+                    if not torch.equal(g, e):
+                        raise SmokeFailure(
+                            f"{name} N={N} D={D} K={K} output {i}: graph "
+                            f"replay {r} differs from the eager call")
+                replays += 1
+            del graph
+    return replays
+
+
+def nodes_per_call(fn, calls=20, attempts=3):
+    """What one wrapper call puts on the stream, counted by torch.profiler
+    over ``calls`` eager calls after a warm-up: kernels, memsets and
+    copies per call. A trace that holds no device event at all is a trace
+    the profiler lost (it happens now and then over many short sessions),
+    not a count: it is taken again, up to ``attempts`` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {"kernels": 0, "memsets": 0, "memcpys": 0}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            key = e.key.lower()
+            kind = ("memsets" if "memset" in key else
+                    "memcpys" if "memcpy" in key else "kernels")
+            counts[kind] += e.count
+        if any(counts.values()):
+            break
+    return {k: v / calls for k, v in counts.items()}
+
+
 def check_graphed_step(steps=6):
     """The CUDA-graphed forward and backward against the eager one at full
     width (GPT-2 124M, bf16, batch 8, sequence 128), on a new batch and
@@ -344,21 +558,24 @@ def device_ms(fn, reps):
 def bound_ms(kernel, N, D, K, x_bytes=4):
     """Least time for the work on an H100 SXM: each input read once, each
     output written once, over 3.35 TB/s; the float32 flops over 67 TFLOP/s;
-    the larger of the two. Scoring kernels: X, U, mu U and log|det U| in,
+    the larger of the two. Every kernel reads X, means and U, and forms
+    mu U and log|det U| once a call (2 K D^2 + K D flops). Scoring kernels:
     (N, K) or 2 (N,) out; K (2 D^2 + 3 D + 3) flops a row (the density).
-    EM kernels: X, log w, means and U in, nk, sx or means, sxx or cov and
-    ll out; K (3 D^2 + 6 D + 10) + 1 flops a row: the density, the
+    EM kernels: log w in besides; nk, sx or means, sxx or cov and ll out;
+    K (3 D^2 + 6 D + 10) + 1 flops a row: the density, the
     responsibilities' log-sum-exp (6 a component, exp counted as one), nk
     and sx (1 + 2 D), sxx as the symmetric product of r x with x (D^2 + D:
     half the entries at 2 flops, r x_d reused from sx) and ll (1).
     gmm_update adds its M-step once: K (3 D (D + 1) / 2 + D + 1) flops."""
-    params = 4 * (K * D * D + K * D + K)
+    params = 4 * (K * D * D + K * D)
+    ops = 2 * K * D * D + K * D
     if kernel in ("gmm_score", "gmm_best"):
         out = N * K * 4 if kernel == "gmm_score" else N * 8
-        ops = N * K * (2 * D * D + 3 * D + 3)
+        ops += N * K * (2 * D * D + 3 * D + 3)
     else:
+        params += 4 * K
         out = 4 * (K * D * D + K * D + K + 1)
-        ops = N * (K * (3 * D * D + 6 * D + 10) + 1)
+        ops += N * (K * (3 * D * D + 6 * D + 10) + 1)
         if kernel == "gmm_update":
             ops += K * (3 * D * (D + 1) // 2 + D + 1)
     bytes_ = N * D * x_bytes + params + out
@@ -368,15 +585,18 @@ def bound_ms(kernel, N, D, K, x_bytes=4):
 
 
 def measure(ops, kmod, N, D, K, reps):
-    """Times of each kernel and its plain version on one float32 input.
-    ``ms`` / ``plain_ms``: device time of a wrapper call (the torch ops that
-    form mu U and log|det U|, plus the launch) and of a plain call;
-    ``kernel_only_ms``: the launch alone; ``host_ms`` / ``plain_host_ms``:
-    back-to-back eager calls, bound by the host at small N."""
+    """Times of each kernel and its plain version on one float32 input, U
+    in the EM loop's layout (a transposed view). ``ms`` / ``plain_ms``:
+    device time of a wrapper call (its one launch) and of a plain call;
+    ``kernel_only_ms``: the launch alone, through the C entry point;
+    ``host_ms`` / ``plain_host_ms``: back-to-back eager calls, bound by the
+    host at small N; ``nodes``: what a wrapper call puts on the stream."""
     import torch
 
     X, means, U = make_params(N, D, K, 5, torch.float32)
-    Uf, mu_u, logdet, _, _, _ = kmod._prepare(X, means, U)
+    U = path_layout(U)
+    params = kmod.param_args(*kmod.param_views(means, U))
+    spec = int((D, K) in kmod.SPECIALISED)
     outs = {"gmm_score": (torch.empty((N, K), device=X.device),),
             "gmm_best": (torch.empty((N,), device=X.device),
                          torch.empty((N,), dtype=torch.int32,
@@ -387,8 +607,7 @@ def measure(ops, kmod, N, D, K, reps):
         ptrs = [t.data_ptr() for t in outs[name]]
 
         def raw():
-            launch(X.data_ptr(), 0, Uf.data_ptr(), mu_u.data_ptr(),
-                   logdet.data_ptr(), *ptrs, N, D, K,
+            launch(X.data_ptr(), 0, *params, *ptrs, N, D, K, spec,
                    torch.cuda.current_stream().cuda_stream)
 
         b, by = bound_ms(name, N, D, K)
@@ -400,35 +619,38 @@ def measure(ops, kmod, N, D, K, reps):
             "host_ms": host_ms(lambda: fn(X, means, U), reps),
             "plain_host_ms": host_ms(
                 lambda: fn(X, means, U, backend="plain"), reps),
+            "nodes": nodes_per_call(lambda: fn(X, means, U)),
             "bound_ms": b, "bound_by": by}
     return res
 
 
 def measure_em(ops, smod, N, D, K, reps):
     """The EM kernels' times on one float32 input, as `measure` gives them
-    for the scoring kernels: ``ms`` (a wrapper call: the torch ops forming
-    mu U and log|det U|, the outputs' and workspace's allocation, both
-    launches), ``plain_ms``, ``kernel_only_ms`` (the two launches alone),
-    ``host_ms`` / ``plain_host_ms`` (back-to-back eager calls)."""
+    for the scoring kernels: ``ms`` (a wrapper call: the outputs' and
+    workspace's allocation, the counter's memset and the launch),
+    ``plain_ms``, ``kernel_only_ms`` (the memset and the launch alone),
+    ``host_ms`` / ``plain_host_ms`` (back-to-back eager calls), ``nodes``."""
     import torch
 
-    X, means, U = make_params(N, D, K, 5, torch.float32)
-    log_w = torch.log(torch.full((K,), 1.0 / K, device=X.device))
-    Uf, mu_u, logdet, _, _, _ = smod._prepare(X, means, U)
+    from repro_torch.kernels import gmm_score as kmod
+
+    X, log_w, means, U = em_inputs(N, D, K, 5)
+    U = path_layout(U)
+    params = kmod.param_args(*kmod.param_views(means, U))
+    spec = int((D, K) in kmod.SPECIALISED)
     outs = [torch.empty(shape, device=X.device)
             for shape in ((K,), (K, D), (K, D, D), ())]
-    nb = smod.grid_blocks(N, D, K)
-    work = torch.empty((nb, smod.n_entries(D, K)), device=X.device)
+    nb, work = smod.workspace(N, D, K, X.device)
     res = {}
     for name in ("gmm_stats", "gmm_update"):
         fn = getattr(ops, name)
         launch = smod._fn(f"{name}_launch")
 
         def raw():
-            launch(X.data_ptr(), 0, log_w.data_ptr(), Uf.data_ptr(),
-                   mu_u.data_ptr(), logdet.data_ptr(),
-                   *(o.data_ptr() for o in outs), work.data_ptr(), N, N, D,
-                   K, nb, torch.cuda.current_stream().cuda_stream)
+            launch(X.data_ptr(), 0, log_w.data_ptr(), log_w.stride(0),
+                   *params, *(o.data_ptr() for o in outs), work.data_ptr(),
+                   N, N, D, K, nb, spec,
+                   torch.cuda.current_stream().cuda_stream)
 
         b, by = bound_ms(name, N, D, K)
         res[name] = {
@@ -439,6 +661,7 @@ def measure_em(ops, smod, N, D, K, reps):
             "host_ms": host_ms(lambda: fn(X, log_w, means, U), reps),
             "plain_host_ms": host_ms(
                 lambda: fn(X, log_w, means, U, backend="plain"), reps),
+            "nodes": nodes_per_call(lambda: fn(X, log_w, means, U)),
             "bound_ms": b, "bound_by": by}
     return res
 
@@ -646,6 +869,67 @@ def check_stream(st, launches, plain_calls):
                            f"{st['failed_samples']} device samples")
 
 
+def build_phase(build, kmod, card):
+    """Phase 1: every CUDA source built at once; fails unless ptxas
+    reported every specialised kernel (both dtypes; score, best and EM for
+    each (D, K)) with no stack frame and no spill bytes."""
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    seconds = time.perf_counter() - t0
+    kernels = ptxas_summary(logs)
+    fixed = {k: v for k, v in kernels.items() if "_fixed<" in k}
+    spills = {k: v for k, v in fixed.items()
+              if v.get("spill", 0) or v.get("stack", 0)}
+    emit({"phase": "build", "seconds": seconds, "sources": sorted(logs),
+          "card": card, "instantiations": len(kernels),
+          "specialised": len(fixed),
+          "max_registers": {base: max((v.get("registers", 0)
+                                       for k, v in kernels.items()
+                                       if k.startswith(base + "<")),
+                                      default=None)
+                            for base in ("score_fixed", "score_general",
+                                         "em_fixed", "em_general")},
+          "ptxas": {k: [v.get("registers"), v.get("stack"), v.get("spill")]
+                    for k, v in sorted(kernels.items())}})
+    if len(fixed) != 6 * len(kmod.SPECIALISED):
+        raise SmokeFailure(f"ptxas reported {len(fixed)} specialised "
+                           f"kernels, not 6 x {len(kmod.SPECIALISED)}")
+    if spills:
+        raise SmokeFailure(f"specialised kernels use local memory "
+                           f"(registers, stack, spill bytes): {spills}")
+
+
+def kernel_check_phase(ops, kmod, smod):
+    """Phase 2: every kernel against its plain version; the EM kernels
+    bitwise repeatable, eager and from a CUDA graph; U in the EM loop's
+    layout and NaN; both sides of the specialised / general boundary."""
+    import torch
+
+    worst = {"gmm_score": 0.0, "gmm_best": 0.0}
+    cases = 0
+    for dtype, shapes in ((torch.float32, SHAPES), (torch.bfloat16,
+                                                    BF16_SHAPES)):
+        for i, (N, D, K) in enumerate(shapes):
+            errs = check_case(ops, N, D, K, dtype, seed=i)
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+            cases += 1
+    check_ties_and_nan(ops)
+    em_rel = {"gmm_stats": 0.0, "gmm_update": 0.0}
+    for i, (N, D, K, dtype, nvalid) in enumerate(em_cases()):
+        errs, rel = check_em_case(ops, N, D, K, dtype, seed=100 + i,
+                                  nvalid=nvalid)
+        worst.update({k: max(worst.get(k, 0.0), errs[k]) for k in errs})
+        em_rel = {k: max(em_rel[k], rel[k]) for k in em_rel}
+    layout_cases = check_layout_and_nan(ops)
+    boundary = check_boundary(ops, kmod, smod)
+    replays = check_em_graph_replay(ops)
+    emit({"phase": "kernel_check", "cases": cases + 2,
+          "em_cases": len(em_cases()), "max_abs_err": worst,
+          "em_max_rel_err": em_rel, "em_bitwise_repeatable": True,
+          "transposed_and_nan_u_cases": layout_cases,
+          "boundary": boundary, "em_graph_replays_bitwise": replays})
+
+
 def main() -> int:
     import torch
 
@@ -665,34 +949,8 @@ def main() -> int:
     card = nvidia_smi()
     power_limit_w = float(card.split(",")[1].strip().split()[0])
 
-    # 1. build
-    t0 = time.perf_counter()
-    logs = build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": sorted(logs), "card": card,
-          "ptxas": [ln.strip() for log in logs.values()
-                    for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
-
-    # 2. kernels against plain on the grid
-    worst = {"gmm_score": 0.0, "gmm_best": 0.0}
-    cases = 0
-    for dtype, shapes in ((torch.float32, SHAPES), (torch.bfloat16,
-                                                    BF16_SHAPES)):
-        for i, (N, D, K) in enumerate(shapes):
-            errs = check_case(ops, N, D, K, dtype, seed=i)
-            worst = {k: max(worst[k], errs[k]) for k in worst}
-            cases += 1
-    check_ties_and_nan(ops)
-    em_rel = {"gmm_stats": 0.0, "gmm_update": 0.0}
-    for i, (N, D, K, dtype, nvalid) in enumerate(em_cases()):
-        errs, rel = check_em_case(ops, N, D, K, dtype, seed=100 + i,
-                                  nvalid=nvalid)
-        worst.update({k: max(worst.get(k, 0.0), errs[k]) for k in errs})
-        em_rel = {k: max(em_rel[k], rel[k]) for k in em_rel}
-    emit({"phase": "kernel_check", "cases": cases + 2,
-          "em_cases": len(em_cases()), "max_abs_err": worst,
-          "em_max_rel_err": em_rel, "em_bitwise_repeatable": True})
+    build_phase(build, kmod, card)
+    kernel_check_phase(ops, kmod, smod)
 
     # the train step's CUDA graph against the eager step
     rel_loss, rel_grad = check_graphed_step()
@@ -703,14 +961,26 @@ def main() -> int:
         for counts in (kmod.LAUNCHES, smod.LAUNCHES, ref.CALLS):
             for k in counts:
                 counts[k] = 0
+        for variants in (kmod.VARIANTS, smod.VARIANTS):
+            for v in variants.values():
+                v.update(specialised=0, general=0)
 
     def read_counts():
         return {**kmod.LAUNCHES, **smod.LAUNCHES}, dict(ref.CALLS)
+
+    def read_variants(path):
+        variants = {k: dict(v) for counts in (kmod.VARIANTS, smod.VARIANTS)
+                    for k, v in counts.items()}
+        if any(v["general"] for v in variants.values()):
+            raise SmokeFailure(f"{path} launched a general kernel: "
+                               f"{variants}")
+        return variants
 
     # 3. the main path on the card
     reset_counts()
     out = quickstart.run(device="cuda", peak_w=power_limit_w)
     launches, plain_calls = read_counts()
+    variants = read_variants("main_path")
     losses = out["losses"]
     hit, false = out["step_hit_rate"], out["step_false_rate"]
     emit({"phase": "main_path", "steps": out["steps"],
@@ -721,7 +991,7 @@ def main() -> int:
           "step_false_rate": false, "actions": len(out["actions"]),
           "step_ms_p10_p50_p90": out["step_ms_p10_p50_p90"],
           "layer_shapes": out["layer_shapes"], "launches": launches,
-          "plain_calls": plain_calls,
+          "variants": variants, "plain_calls": plain_calls,
           "failed_samples": out["failed_samples"]})
     if not all(math.isfinite(float(v)) for v in losses):
         raise SmokeFailure("non-finite training loss")
@@ -747,7 +1017,8 @@ def main() -> int:
     reset_counts()
     st = quickstart.run_stream(device="cuda", peak_w=power_limit_w)
     s_launches, s_plain = read_counts()
-    emit(stream_line(st, s_launches, s_plain))
+    s_variants = read_variants("stream_path")
+    emit({**stream_line(st, s_launches, s_plain), "variants": s_variants})
     check_stream(st, s_launches, s_plain)
 
     # 5. times at each path's largest shape and at scale
@@ -767,6 +1038,13 @@ def main() -> int:
                                                      reps=50)
                     for n, d, k in EM_SCALING})
     emit({"phase": "kernel_scaling", "card": card, "shapes": scaling})
+    for name, res in at_path.items():
+        want = {"kernels": 1.0, "memsets": float(name in ("gmm_stats",
+                                                          "gmm_update")),
+                "memcpys": 0.0}
+        if res["nodes"] != want:
+            raise SmokeFailure(f"{name}: a wrapper call put {res['nodes']} "
+                               f"on the stream, not {want}")
 
     emit({"phase": "profile", "card": card, **profile_phase(N, D, K)})
 
@@ -781,7 +1059,11 @@ def main() -> int:
          "host_ms": at_path[name]["host_ms"], "shape": list(shapes[name]),
          "path": "main_path" if paths[name] is launches else "stream_path",
          "launches_by_path": {"main_path": launches[name],
-                              "stream_path": s_launches[name]}}
+                              "stream_path": s_launches[name]},
+         "kernels_per_call": at_path[name]["nodes"]["kernels"],
+         "memsets_per_call": at_path[name]["nodes"]["memsets"],
+         "variants_by_path": {"main_path": variants[name],
+                              "stream_path": s_variants[name]}}
         for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,9 @@
 Each source in ``kernels/csrc`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Libraries go to ``build/kernels/`` at the repository root, which
-``.gitignore`` lists, under a name that carries a hash of the source, so an
-edited source is rebuilt and a stale library is never loaded. Nothing is
+``.gitignore`` lists, under a name that carries a hash of the source and of
+the shared headers (``csrc/*.cuh``), so an edited source or header is
+rebuilt and a stale library is never loaded. Nothing is
 compiled when the module is imported: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,9 +38,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / source).read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+    """The library's path, named by a hash of the source, the headers it
+    may include (every ``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha1((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 class Build(NamedTuple):
@@ -76,10 +81,13 @@ def finish_build(source: str, build: Optional[Build]) -> str:
     return log
 
 
-def build_all(sources: Optional[List[str]] = None) -> Dict[str, str]:
-    """Compile every CUDA source at once, one nvcc each, all started
-    together; returns {source: compiler output}."""
-    names = sources or sorted(p.name for p in CSRC.glob("*.cu"))
+def build_all() -> Dict[str, str]:
+    """Compile every CUDA source anew, one nvcc each, all started together,
+    so that the compiler's report of each is there to read; returns
+    {source: compiler output}. Call it before any library is loaded."""
+    names = sorted(p.name for p in CSRC.glob("*.cu"))
+    for s in names:
+        library_path(s).unlink(missing_ok=True)
     builds = {s: start_build(s) for s in names}
     return {s: finish_build(s, b) for s, b in builds.items()}
 

@@ -11,90 +11,330 @@
 //   sxx_kde = sum_n resp_nk x_nd x_ne           ll = sum_n norm_n
 // gmm_update adds the M-step: mu = sx / (nk + 1e-10),
 // Sigma = sxx / (nk + 1e-10) - mu mu^T, and returns nk without the 1e-10.
-// The wrapper forms mu_k U_k and log|det U_k| with torch before the launch,
-// as the Pallas wrapper's `_prepare` does.
 //
-// The TPU kernel keeps its accumulators in scratch across a grid that runs
-// in order: it zeroes them at program 0, adds in every block and finishes
-// the M-step in the last. CUDA blocks run in parallel and in no order, so
-// the work is split in two launches with no float atomics:
+// What bounds it on this card, and what the design does about it:
 //
-//   pass 1 (estep_partials): each block walks its tiles of kThreads rows
-//     (grid-stride). The tile's valid rows are copied into shared memory
-//     with coalesced loads (rows >= nvalid are never loaded); each thread
-//     then turns one row into its responsibilities and log-sum-exp norm,
-//     also kept in shared memory. Then every thread owns fixed output
-//     entries -- one entry of (nk, sx, sxx, ll) over one contiguous group
-//     of the tile's rows -- and sums them in row order into an accumulator
-//     in shared memory. When the output is smaller than the block (E <
-//     kThreads), the tile's rows are split into G groups so that every
-//     thread has work. At the end a block sums its groups in order and
-//     writes its partial vector (E floats) to a workspace the wrapper
-//     allocated.
-//   pass 2 (reduce_partials): one block sums the partials in block-index
-//     order (in G2 contiguous ranges of blocks, then the ranges in order)
-//     and, for gmm_update, applies the M-step before writing the outputs.
-//
-// Every sum runs in a fixed order, and the grid size is a function of N,
-// D and K alone (never of the device), so two calls on the same input give
-// bitwise equal outputs.
-//
-// Bound: the function needs K (3 D^2 + 6 D + 10) + 1 flops a row (the
-// density K (2 D^2 + 3 D + 3), the responsibilities' log-sum-exp 6 K with
-// exp counted as one, nk and sx K (1 + 2 D), sxx as the symmetric product
-// K (D^2 + D), ll 1) for 4 D bytes read. At D = 4, K = 3 that is 247 flops
-// per 16-byte row, ~15 flops a byte, against the card's float32 ridge of
-// ~20 flops a byte, so at large N (2^20 rows) the kernels are bound by
-// device-memory bytes: the design reads X once, with coalesced loads, and
-// writes only the (K, D, D) outputs. At the streaming detector's N (2048 fit rows, 256-1024 bucket
-// rows) a call is bound by its two launches, not by this arithmetic.
-//
-// Shared memory, pass 1: K*D*D + K*D + 2K + kThreads*(D + K + 1) + G*E
-// floats, 185,540 bytes at the largest shape (D = 32, K = 16, E = 16,913);
-// pass 2: G2*E (+ E when G2 > 1) floats. Above 48 KB each launch requests
-// the dynamic-shared-memory opt-in.
+// - At the streaming detector's N (2,048 fit rows, 256-1,024 bucket rows) a
+//   call is bound by its launches and its dependent chain, not by the
+//   arithmetic. So a wrapper call is ONE kernel (and a 4-byte memset):
+//   - each block forms mu_k U_k and log|det U_k| from U itself
+//     (load_params), reading means, U and log w through their strides, so
+//     no torch op runs before the launch and the transposed U of the EM
+//     loop is never copied;
+//   - each block writes its partial sums to a workspace, fences, and takes
+//     a ticket with an integer atomicAdd on a counter the launcher zeroed
+//     (cudaMemsetAsync on the caller's stream: a memset node, captured
+//     with the kernel into a CUDA graph). The block that draws the last
+//     ticket sums all partials and applies gmm_update's M-step; the TPU
+//     kernel did this in the last program of a grid that runs in order.
+//     The partials are entry-major, so each warp of the last block reads
+//     consecutive blocks' partials of its entries, coalesced, past L1
+//     (__ldcg), with all of a lane's loads in flight at once; each lane
+//     sums its blocks in order, then a shuffle tree.
+//   There are no float atomics, and the grid (`grid_blocks` in the
+//   wrapper, at most 264 blocks) is a function of (N, D, K) alone, so
+//   every sum runs in an order fixed by the input: two calls, eager or
+//   replayed in a graph, give bitwise equal outputs.
+// - At large N (2^20 rows) it is bound by device-memory bytes: the function
+//   needs K (3 D^2 + 6 D + 10) + 1 flops a row (the density K (2 D^2 + 3 D
+//   + 3), the responsibilities' log-sum-exp 6 K with exp counted as one, nk
+//   and sx K (1 + 2 D), sxx as the symmetric product K (D^2 + D), ll 1) for
+//   4 D bytes read: 247 flops per 16-byte row at D = 4, K = 3, ~15 a byte
+//   against the float32 ridge of ~20. For the (D, K) in use
+//   (GMM_FIXED_SHAPES) the kernel is specialised: each warp streams its
+//   own tiles of 32 rows through a 4-deep ring in shared memory by 16-byte
+//   cp.async of the tile's span, with no block barrier in the loop (rows
+//   >= nvalid are never loaded); the row, U, mu U, log|det U| and log w
+//   live in registers and the density is fully unrolled; resp_k is
+//   exp(logr_k - m) / s (K exps a row, not 2 K); each thread keeps its own
+//   nk, sx, the symmetric half of sxx and ll in registers (K (1 + D + D (D
+//   + 1) / 2) + 1 of them, 46 at D = 4, K = 3) over its rows, walked
+//   grid-stride; the block reduces them in a fixed order, each warp by a
+//   reduce-scatter of shuffles (P - P / 32 of them for P values, where a
+//   tree takes 5 P) and then the warps in order through shared memory,
+//   and the mirrored sxx entries are written from the same sum, so the
+//   covariance is exactly symmetric. A kernel whose registers fit 128 asks
+//   for two blocks an SM.
+// - Other shapes (up to D = 32, K = 16) take the general kernel: the tile's
+//   rows are copied into shared memory, each thread turns one row into its
+//   responsibilities and norm there, then every thread owns fixed (output
+//   entry, row group) slots and sums them in row order into a shared-memory
+//   accumulator. Shared memory: K D^2 + 2 K D + 2 K + 256 (D + K + 1) +
+//   G E floats (E = K + K D + K D^2 + 1, G = max(1, 256 / E)), 187,588
+//   bytes at D = 32, K = 16, with the dynamic-shared-memory opt-in.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through ctypes; each launcher returns a cudaError_t.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "gmm_common.cuh"
 
 namespace {
 
-constexpr int kMaxD = 32;
-constexpr int kMaxK = 16;
-constexpr int kThreads = 256;
-constexpr double kLog2Pi = 1.8378770664093453;  // log(2 pi)
-constexpr size_t kStaticSmemLimit = 48 * 1024;
+using namespace gmm;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Output entries, in the order of the partial vector and of the outputs:
+// Entries of the general kernel's partial vector, in the order of the
+// outputs:
 //   [0, K)                      nk_k
 //   [K, K + K*D)                sx_kd
 //   [K + K*D, K + K*D + K*D*D)  sxx_kde
 //   E - 1                       ll
-__host__ __device__ __forceinline__ int n_entries(int D, int K) {
+// The specialised kernel keeps only the upper triangle d <= e of each
+// sxx_k (tri(d, e) below), so its vector is shorter; the workspace holds
+// the longer one.
+__host__ __device__ constexpr int n_entries(int D, int K) {
   return K + K * D + K * D * D + 1;
+}
+__host__ __device__ constexpr int n_fixed_entries(int D, int K) {
+  return K + K * D + K * D * (D + 1) / 2 + 1;
+}
+__host__ __device__ constexpr int tri(int d, int e, int D) {
+  return d * D - d * (d - 1) / 2 + (e - d);
+}
+
+// Blocks a specialised kernel asks to keep resident on an SM: two when its
+// registers (parameters, accumulators, a row and some slack) fit 128, else
+// one, so that the compiler never has to spill to make room for two.
+__host__ __device__ constexpr int em_min_blocks(int D, int K) {
+  return K * D * D + K * D + 2 * K + n_fixed_entries(D, K) + D + K + 24 <= 112
+             ? 2
+             : 1;
+}
+
+// The outputs from the block totals tot (the full layout, or with kTri the
+// specialised kernel's upper triangles), with gmm_update's M-step when
+// m_step. kD, kK > 0 fix the shape at compile time; 0 takes D_ and K_.
+template <bool kTri, int kD = 0, int kK = 0>
+__device__ __forceinline__ void write_outputs(const float* tot, int D_, int K_,
+                                              bool m_step, float* nk,
+                                              float* sx, float* sxx,
+                                              float* ll) {
+  const int D = kD > 0 ? kD : D_, K = kK > 0 ? kK : K_;
+  const int E = kTri ? n_fixed_entries(D, K) : n_entries(D, K);
+  const int per_k = kTri ? D * (D + 1) / 2 : D * D;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    nk[i] = tot[i];  // without the 1e-10, as the reference returns it
+  }
+  for (int i = threadIdx.x; i < K * D; i += blockDim.x) {
+    const int k = i / D;
+    sx[i] = m_step ? tot[K + i] / (tot[k] + 1e-10f) : tot[K + i];
+  }
+  for (int i = threadIdx.x; i < K * D * D; i += blockDim.x) {
+    const int k = i / (D * D), d = (i / D) % D, f = i % D;
+    const int j = kTri ? tri(d < f ? d : f, d < f ? f : d, D) : d * D + f;
+    const float v = tot[K + K * D + k * per_k + j];
+    if (m_step) {
+      const float den = tot[k] + 1e-10f;
+      const float mu_d = tot[K + k * D + d] / den;
+      const float mu_f = tot[K + k * D + f] / den;
+      // sxx / den - mu mu^T as two rounded steps, like the reference
+      sxx[i] = __fsub_rn(v / den, __fmul_rn(mu_d, mu_f));
+    } else {
+      sxx[i] = v;
+    }
+  }
+  if (threadIdx.x == 0) ll[0] = tot[E - 1];
+}
+
+// The sum of v over a warp's lanes, in a fixed order (every lane gets it).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// The warp's sums of a thread's P values (P a multiple of 32), by recursive
+// halving: at each of the 5 levels a lane keeps half of its vector and
+// trades the other half with its partner, so a warp makes P - P / 32
+// shuffles, not 5 P. Afterwards lane l holds, in v[0, P / 32), the warp
+// totals of the entries l P / 32 + i. The order of every sum is fixed.
+template <int L, int P>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[P], int lane) {
+  if constexpr (L > P / 32) {  // the level that halves L, offset 16 L / P
+    constexpr int o = 16 * L / P;
+    const bool upper = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < L / 2; ++i) {
+      const float give = upper ? v[i] : v[i + L / 2];
+      const float keep = upper ? v[i + L / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, give, o);
+    }
+    warp_reduce_scatter<L / 2, P>(v, lane);
+  }
+}
+
+// After a block has written its partials (every thread fenced its own
+// writes): true in the one block that draws the last ticket.
+__device__ __forceinline__ bool is_last_block(unsigned* ticket) {
+  __shared__ bool is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (is_last) __threadfence();
+  return is_last;
+}
+
+// In the last block: the partials of all blocks (entry-major: entry e of
+// block b at partial[e * gridDim.x + b]) summed into tot (shared), read
+// past L1. Warp w takes the entries w, w + kWarps, ...; its lanes read
+// consecutive blocks' partials (coalesced), all of a lane's entries at
+// once, each lane sums its blocks in order, then a shuffle tree: the order
+// is fixed by the grid alone. kE > 0 is the specialised kernel's entry
+// count (the entries of a lane unrolled, their loads in flight together);
+// kE = 0 takes the general kernel's E at run time.
+template <int kE>
+__device__ __forceinline__ void sum_partials(const float* partial, float* tot,
+                                             int E = kE) {
+  const int nb = gridDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (kE > 0) {
+    constexpr int kPer = (kE + kWarps - 1) / kWarps;
+    float v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) v[j] = 0.f;
+    for (int b = lane; b < nb; b += 32) {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int e = warp + j * kWarps;
+        if (e < kE) v[j] += __ldcg(partial + static_cast<int64_t>(e) * nb + b);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const float t = warp_sum(v[j]);
+      const int e = warp + j * kWarps;
+      if (lane == 0 && e < kE) tot[e] = t;
+    }
+  } else {
+    for (int e = warp; e < E; e += kWarps) {
+      const float* col = partial + static_cast<int64_t>(e) * nb;
+      float v = 0.f;
+      for (int b = lane; b < nb; b += 32) v += __ldcg(col + b);
+      v = warp_sum(v);
+      if (lane == 0) tot[e] = v;
+    }
+  }
+}
+
+template <typename T, int D, int K>
+__global__ void __launch_bounds__(kThreads, em_min_blocks(D, K))
+em_fixed(const T* __restrict__ X, Params p, int64_t n_eff, bool m_step,
+         float* __restrict__ nk, float* __restrict__ sx,
+         float* __restrict__ sxx, float* __restrict__ ll,
+         float* partial, unsigned* __restrict__ ticket) {
+  constexpr int E = n_fixed_entries(D, K);
+  constexpr int P = (E + 31) / 32 * 32;  // E padded for the reduce-scatter
+  constexpr int kSx = K, kSxx = K + K * D, kTri = D * (D + 1) / 2;
+  __shared__ WarpPipe<T, D> pipe;
+  __shared__ float sU[K * D * D], sMean[K * D], sMuU[K * D], sLd[K], sLw[K];
+  __shared__ float sRed[kWarps][P];
+  __shared__ float sTot[E];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec = (reinterpret_cast<uintptr_t>(X) & 15) == 0;
+  const int64_t ntiles = (n_eff + 31) / 32;
+  const int64_t wstep = static_cast<int64_t>(gridDim.x) * kWarps;
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    pipe.issue(warp, s, X, w0 + s * wstep, n_eff, vec);
+  }
+  load_params<D, K>(p, D, K, sU, sMean, sMuU, sLd, sLw);
+  FixedParams<D, K> prm;
+  prm.load(sU, sMuU, sLd);
+  float lw[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) lw[k] = sLw[k];
+  const float d_log2pi = static_cast<float>(D * kLog2Pi);
+
+  float acc[P];
+#pragma unroll
+  for (int e = 0; e < P; ++e) acc[e] = 0.f;
+
+  int slot = 0;
+  for (int64_t t = w0; t < ntiles; t += wstep) {
+    cp_async_wait<kStages - 2>();  // this lane's copies of the tile ...
+    __syncwarp();  // ... and the other lanes'; all are done with the last
+    pipe.issue(warp, (slot + kStages - 1) % kStages, X,
+               t + (kStages - 1) * wstep, n_eff, vec);
+    if (t * 32 + lane < n_eff) {
+      float x[D];
+      row_from_smem<D>(pipe.tile(warp, slot) + lane * D, x);
+      float logr[K];
+      float m = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        logr[k] = log_density<D>(x, prm.u[k], prm.mu[k], prm.ld[k],
+                                 d_log2pi) + lw[k];
+        m = fmaxf(m, logr[k]);
+      }
+      // a NaN density makes the sum, the norm and every responsibility
+      // NaN, as jnp.max / logsumexp do in the reference. resp_k is
+      // exp(logr_k - m) / s, the reference's exp(logr_k - norm) without a
+      // second exp (and without the rounding of log s inside it)
+      float ek[K];
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        ek[k] = expf(logr[k] - m);
+        s += ek[k];
+      }
+      const float norm = m + logf(s);
+      const float inv_s = __frcp_rn(s);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float rk = ek[k] * inv_s;
+        acc[k] += rk;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const float rx = rk * x[d];
+          acc[kSx + k * D + d] += rx;
+#pragma unroll
+          for (int f = d; f < D; ++f) {
+            float& a = acc[kSxx + k * kTri + tri(d, f, D)];
+            a = fmaf(rx, x[f], a);
+          }
+        }
+      }
+      acc[E - 1] += norm;
+    }
+    slot = slot + 1 == kStages ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();
+
+  // the block's sums in a fixed order: each warp's by reduce-scatter, then
+  // the warps in order
+  warp_reduce_scatter<P, P>(acc, lane);
+#pragma unroll
+  for (int i = 0; i < P / 32; ++i) sRed[warp][lane * (P / 32) + i] = acc[i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += sRed[w][e];
+    partial[static_cast<int64_t>(e) * gridDim.x + blockIdx.x] = v;
+  }
+  if (is_last_block(ticket)) {
+    sum_partials<E>(partial, sTot);
+    __syncthreads();
+    write_outputs<true, D, K>(sTot, D, K, m_step, nk, sx, sxx, ll);
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-estep_partials(const T* __restrict__ X, const float* __restrict__ log_w,
-               const float* __restrict__ U, const float* __restrict__ mu_u,
-               const float* __restrict__ logdet, float* __restrict__ partial,
-               int64_t n_eff, int D, int K, int G) {
+em_general(const T* __restrict__ X, Params p, int64_t n_eff, bool m_step,
+           int D, int K, int G, float* __restrict__ nk,
+           float* __restrict__ sx, float* __restrict__ sxx,
+           float* __restrict__ ll, float* partial,
+           unsigned* __restrict__ ticket) {
   extern __shared__ float smem[];
   const int E = n_entries(D, K);
   float* sU = smem;                  // (K, D, D)
-  float* sMu = sU + K * D * D;       // (K, D)
+  float* sMean = sU + K * D * D;     // (K, D)
+  float* sMu = sMean + K * D;        // (K, D)
   float* sLd = sMu + K * D;          // (K,)
   float* sLw = sLd + K;              // (K,)
   float* sX = sLw + K;               // (kThreads, D) the tile's rows
@@ -102,16 +342,10 @@ estep_partials(const T* __restrict__ X, const float* __restrict__ log_w,
   float* sN = sR + kThreads * K;     // (kThreads,) log-sum-exp norms
   float* sAcc = sN + kThreads;       // (G, E) this block's sums
   const int tid = threadIdx.x;
-  for (int i = tid; i < K * D * D; i += kThreads) sU[i] = U[i];
-  for (int i = tid; i < K * D; i += kThreads) sMu[i] = mu_u[i];
-  for (int i = tid; i < K; i += kThreads) {
-    sLd[i] = logdet[i];
-    sLw[i] = log_w[i];
-  }
   for (int i = tid; i < G * E; i += kThreads) sAcc[i] = 0.f;
+  load_params(p, D, K, sU, sMean, sMu, sLd, sLw);
   const int R = (kThreads + G - 1) / G;  // rows of a tile per group
   const float d_log2pi = static_cast<float>(D * kLog2Pi);
-  __syncthreads();
 
   for (int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
        row0 < n_eff; row0 += static_cast<int64_t>(gridDim.x) * kThreads) {
@@ -141,8 +375,6 @@ estep_partials(const T* __restrict__ X, const float* __restrict__ log_w,
           m = fmaxf(m, logr[k]);
         }
       }
-      // a NaN density makes the sum, the norm and every responsibility
-      // NaN, as jnp.max / logsumexp do in the reference
       float s = 0.f;
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k) {
@@ -185,148 +417,111 @@ estep_partials(const T* __restrict__ X, const float* __restrict__ log_w,
   for (int e = tid; e < E; e += kThreads) {
     float tot = 0.f;
     for (int g = 0; g < G; ++g) tot += sAcc[g * E + e];
-    partial[static_cast<int64_t>(blockIdx.x) * E + e] = tot;
+    partial[static_cast<int64_t>(e) * gridDim.x + blockIdx.x] = tot;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-reduce_partials(const float* __restrict__ partial, int nb, int D, int K,
-                int G2, bool m_step, float* __restrict__ nk,
-                float* __restrict__ sx, float* __restrict__ sxx,
-                float* __restrict__ ll) {
-  extern __shared__ float smem[];
-  const int E = n_entries(D, K);
-  float* sPart = smem;                            // (G2, E)
-  float* sTot = G2 > 1 ? sPart + G2 * E : sPart;  // (E,)
-  const int tid = threadIdx.x;
-  const int B = (nb + G2 - 1) / G2;  // blocks' partials per range
-  for (int slot = tid; slot < G2 * E; slot += kThreads) {
-    const int g = slot / E;
-    const int e = slot - g * E;
-    const int b1 = (g + 1) * B < nb ? (g + 1) * B : nb;
-    float acc = 0.f;
-    for (int b = g * B; b < b1; ++b)
-      acc += partial[static_cast<int64_t>(b) * E + e];
-    sPart[slot] = acc;
-  }
-  __syncthreads();
-  if (G2 > 1) {
-    for (int e = tid; e < E; e += kThreads) {
-      float tot = 0.f;
-      for (int g = 0; g < G2; ++g) tot += sPart[g * E + e];
-      sTot[e] = tot;
-    }
+  if (is_last_block(ticket)) {  // its shared memory holds >= E floats
+    sum_partials<0>(partial, smem, E);
     __syncthreads();
+    write_outputs<false>(smem, D, K, m_step, nk, sx, sxx, ll);
   }
-
-  for (int e = tid; e < E; e += kThreads) {
-    const float v = sTot[e];
-    if (e < K) {
-      nk[e] = v;  // without the 1e-10, as the reference returns it
-    } else if (e < K + K * D) {
-      const int j = e - K, k = j / D;
-      sx[j] = m_step ? v / (sTot[k] + 1e-10f) : v;
-    } else if (e < E - 1) {
-      const int j = e - K - K * D;
-      if (m_step) {
-        const int k = j / (D * D), d = (j / D) % D, f = j % D;
-        const float den = sTot[k] + 1e-10f;
-        const float mu_d = sTot[K + k * D + d] / den;
-        const float mu_f = sTot[K + k * D + f] / den;
-        // sxx / den - mu mu^T as two rounded steps, like the reference
-        sxx[j] = __fsub_rn(v / den, __fmul_rn(mu_d, mu_f));
-      } else {
-        sxx[j] = v;
-      }
-    } else {
-      ll[0] = v;
-    }
-  }
-}
-
-template <typename F>
-int set_smem(F* kernel, size_t smem) {
-  if (smem <= kStaticSmemLimit) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
 }
 
 template <typename T>
-int launch(const void* X, const void* log_w, const void* U, const void* mu_u,
-           const void* logdet, void* nk, void* sx, void* sxx, void* ll,
-           void* work, int64_t N, int64_t nvalid, int D, int K, int nb,
-           bool m_step, void* stream) {
+int launch(const void* Xv, const Params& p, void* nk, void* sx, void* sxx,
+           void* ll, void* work, int64_t N, int64_t nvalid, int D, int K,
+           int nb, bool m_step, bool specialised, void* stream) {
   if (N < 0 || nvalid < 0 || D < 1 || D > kMaxD || K < 1 || K > kMaxK ||
       nb < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const T* X = static_cast<const T*>(Xv);
   const int64_t n_eff = nvalid < N ? nvalid : N;
+  float* partial = static_cast<float*>(work);
+  // the ticket counter sits after the nb * E partials of the longer layout
+  unsigned* ticket = reinterpret_cast<unsigned*>(
+      partial + static_cast<int64_t>(nb) * n_entries(D, K));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o[4] = {static_cast<float*>(nk), static_cast<float*>(sx),
+                 static_cast<float*>(sxx), static_cast<float*>(ll)};
+  if (specialised) {
+#define GMM_CASE(d, k)                                                     \
+  if (D == d && K == k) {                                                  \
+    cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);     \
+    if (err != cudaSuccess) return static_cast<int>(err);                  \
+    em_fixed<T, d, k><<<nb, kThreads, 0, s>>>(X, p, n_eff, m_step, o[0],   \
+                                              o[1], o[2], o[3], partial,   \
+                                              ticket);                     \
+    return static_cast<int>(cudaGetLastError());                           \
+  }
+    GMM_FIXED_SHAPES(GMM_CASE)
+#undef GMM_CASE
+    return static_cast<int>(cudaErrorInvalidValue);  // no such instantiation
+  }
   const int E = n_entries(D, K);
   const int G = E < kThreads ? kThreads / E : 1;
-  const size_t smem1 =
-      sizeof(float) * (static_cast<size_t>(K) * D * D + K * D + 2 * K +
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(K) * D * D + 2 * K * D + 2 * K +
                        static_cast<size_t>(kThreads) * (D + K + 1) +
                        static_cast<size_t>(G) * E);
-  const int G2 = E < kThreads ? kThreads / E : 1;
-  const size_t smem2 =
-      sizeof(float) * (static_cast<size_t>(G2) * E + (G2 > 1 ? E : 0));
-  auto pass1 = estep_partials<T>;
-  int err = set_smem(pass1, smem1);
+  auto kernel = em_general<T>;
+  int err = set_smem(kernel, smem);
   if (err) return err;
-  err = set_smem(reduce_partials, smem2);
+  err = static_cast<int>(cudaMemsetAsync(ticket, 0, sizeof(unsigned), s));
   if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pass1<<<nb, kThreads, smem1, s>>>(
-      static_cast<const T*>(X), static_cast<const float*>(log_w),
-      static_cast<const float*>(U), static_cast<const float*>(mu_u),
-      static_cast<const float*>(logdet), static_cast<float*>(work), n_eff, D,
-      K, G);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  reduce_partials<<<1, kThreads, smem2, s>>>(
-      static_cast<const float*>(work), nb, D, K, G2, m_step,
-      static_cast<float*>(nk), static_cast<float*>(sx),
-      static_cast<float*>(sxx), static_cast<float*>(ll));
+  kernel<<<nb, kThreads, smem, s>>>(X, p, n_eff, m_step, D, K, G, o[0], o[1],
+                                    o[2], o[3], partial, ticket);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int x_dtype, const void* X, const void* log_w, const void* U,
-             const void* mu_u, const void* logdet, void* nk, void* sx,
+int dispatch(const void* X, int x_dtype, const void* log_w, int64_t lws,
+             const void* means, int64_t ms0, int64_t ms1, const void* U,
+             int64_t us0, int64_t us1, int64_t us2, void* nk, void* sx,
              void* sxx, void* ll, void* work, int64_t N, int64_t nvalid,
-             int D, int K, int nb, bool m_step, void* stream) {
+             int D, int K, int nb, bool m_step, int specialised,
+             void* stream) {
+  const Params p{static_cast<const float*>(means), ms0, ms1,
+                 static_cast<const float*>(U), us0, us1, us2,
+                 static_cast<const float*>(log_w), lws};
   if (x_dtype == 0)
-    return launch<float>(X, log_w, U, mu_u, logdet, nk, sx, sxx, ll, work, N,
-                         nvalid, D, K, nb, m_step, stream);
+    return launch<float>(X, p, nk, sx, sxx, ll, work, N, nvalid, D, K, nb,
+                         m_step, specialised != 0, stream);
   if (x_dtype == 1)
-    return launch<__nv_bfloat16>(X, log_w, U, mu_u, logdet, nk, sx, sxx, ll,
-                                 work, N, nvalid, D, K, nb, m_step, stream);
+    return launch<__nv_bfloat16>(X, p, nk, sx, sxx, ll, work, N, nvalid, D,
+                                 K, nb, m_step, specialised != 0, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16. `work` holds nb * E floats, where nb
-// is the pass-1 grid the wrapper computed (`grid_blocks`). Returns a
+// x_dtype: 0 = float32, 1 = bfloat16. log_w (K,), means (K, D) and U
+// (K, D, D) are float32 with the given strides, in elements. `work` holds
+// nb * (K + K D + K D^2 + 1) floats and one 32-bit counter after them, where
+// nb is the grid the wrapper computed (`grid_blocks`). specialised: 1 for
+// the kernel specialised on (D, K), 0 for the general one. Returns a
 // cudaError_t (0 = success).
 extern "C" int gmm_stats_launch(const void* X, int x_dtype, const void* log_w,
-                                const void* U, const void* mu_u,
-                                const void* logdet, void* nk, void* sx,
+                                int64_t lws, const void* means, int64_t ms0,
+                                int64_t ms1, const void* U, int64_t us0,
+                                int64_t us1, int64_t us2, void* nk, void* sx,
                                 void* sxx, void* ll, void* work, int64_t N,
                                 int64_t nvalid, int D, int K, int nb,
-                                void* stream) {
-  return dispatch(x_dtype, X, log_w, U, mu_u, logdet, nk, sx, sxx, ll, work,
-                  N, nvalid, D, K, nb, false, stream);
+                                int specialised, void* stream) {
+  return dispatch(X, x_dtype, log_w, lws, means, ms0, ms1, U, us0, us1, us2,
+                  nk, sx, sxx, ll, work, N, nvalid, D, K, nb, false,
+                  specialised, stream);
 }
 
 // The same, with the M-step: `sx` receives the means, `sxx` the
 // covariances.
 extern "C" int gmm_update_launch(const void* X, int x_dtype,
-                                 const void* log_w, const void* U,
-                                 const void* mu_u, const void* logdet,
-                                 void* nk, void* means, void* cov, void* ll,
-                                 void* work, int64_t N, int64_t nvalid, int D,
-                                 int K, int nb, void* stream) {
-  return dispatch(x_dtype, X, log_w, U, mu_u, logdet, nk, means, cov, ll,
-                  work, N, nvalid, D, K, nb, true, stream);
+                                 const void* log_w, int64_t lws,
+                                 const void* means, int64_t ms0, int64_t ms1,
+                                 const void* U, int64_t us0, int64_t us1,
+                                 int64_t us2, void* nk, void* means_out,
+                                 void* cov, void* ll, void* work, int64_t N,
+                                 int64_t nvalid, int D, int K, int nb,
+                                 int specialised, void* stream) {
+  return dispatch(X, x_dtype, log_w, lws, means, ms0, ms1, U, us0, us1, us2,
+                  nk, means_out, cov, ll, work, N, nvalid, D, K, nb, true,
+                  specialised, stream);
 }

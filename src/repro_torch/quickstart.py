@@ -54,6 +54,7 @@ from repro_torch.train.step import (init_train_state, make_optimizer_for,
 DEVICE_INTERVAL = 0.01  # device probe polling, seconds
 SETUP_STEPS = 3  # stream mode: steps run before the collector attaches
 FLUSH_EVERY = 20  # stream mode: steps between detection ticks
+N_COMPONENTS = 3  # GMM components of both detectors (fewer on small layers)
 
 
 def _workload(reduced_model: bool, dev, steps: int):
@@ -108,7 +109,8 @@ def run(*, reduced_model: bool = False, device: DeviceLike = None,
     clean = (step_col >= 0) & (step_col < steps)
     clean[clean] = ~labels[step_col[clean]]
     t_detect = time.perf_counter()
-    monitor = FullStackMonitor(n_components=3, min_events=32, device=dev)
+    monitor = FullStackMonitor(n_components=N_COMPONENTS, min_events=32,
+                               device=dev)
     monitor.fit(select_columns(cols, clean))
     results = monitor.detect(cols)
     detect_s = time.perf_counter() - t_detect
@@ -178,8 +180,9 @@ def run_stream(*, reduced_model: bool = False, device: DeviceLike = None,
 
     collector = Collector.standard(device_interval=DEVICE_INTERVAL,
                                    peak_w=peak_w)
-    detector = OnlineGMMDetector(n_components=3, contamination=0.02,
-                                 min_events=32, seed=0, device=dev)
+    detector = OnlineGMMDetector(n_components=N_COMPONENTS,
+                                 contamination=0.02, min_events=32, seed=0,
+                                 device=dev)
     mon = StreamMonitor(horizon_s=300.0, incident_gap_s=0.25,
                         incident_close_after_s=0.25, min_flags=5,
                         detector=detector)

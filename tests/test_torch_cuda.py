@@ -28,7 +28,7 @@ from repro_torch.data import SyntheticLMData
 from repro_torch.core.events import Event, Layer
 from repro_torch.kernels import gmm_score as kmod
 from repro_torch.kernels import gmm_stats as smod
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.model import Runtime, batch_to_device, init_params
 from repro_torch.stream import FleetAggregator, OnlineGMMDetector, wire
 from repro_torch.train.step import CudaGraphed, make_loss_and_grads
@@ -217,3 +217,116 @@ def test_online_detector_on_the_card_matches_the_cpu(cuda):
         assert not ((g.flags != c.flags) & ~near).any()
     assert set(range(110, 120)) <= set(
         gdet[Layer.STEP].anomalous_steps().tolist())
+
+
+def _path_layout(U):
+    """U as the EM loop hands it over: a transposed view, the same values."""
+    return U.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def _call(op, X, log_w, means, U, plain=False):
+    """The wrapper's (or, with plain=True, the plain version's) outputs as a
+    tuple."""
+    fn = getattr(ref, f"{op}_ref") if plain else getattr(ops, op)
+    out = (fn(X, log_w, means, U) if op in ("gmm_stats", "gmm_update")
+           else fn(X, means, U))
+    return (out,) if torch.is_tensor(out) else tuple(out)
+
+
+WRAPPERS = ["gmm_score", "gmm_best", "gmm_stats", "gmm_update"]
+# both sides of the specialised / general boundary
+LAYOUT_SHAPES = [(227, 4, 3), (2048, 3, 3), (777, 5, 3), (500, 4, 6)]
+
+
+def _inputs(N, D, K, cuda, seed=0):
+    X, means, U = (torch.as_tensor(a, device=cuda)
+                   for a in make_params(N, D, K, seed))
+    return X, torch.log(torch.full((K,), 1.0 / K, device=cuda)), means, U
+
+
+@pytest.mark.parametrize("op", WRAPPERS)
+def test_one_kernel_per_wrapper_call(cuda, op):
+    """A wrapper call puts one kernel on the stream (and, for the EM
+    kernels, the 4-byte memset of their counter), with U in the EM loop's
+    layout: no torch op forms mu U or log|det U| or copies U any more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    X, log_w, means, U = _inputs(227, 4, 3, cuda)
+    U = _path_layout(U)
+    _call(op, X, log_w, means, U)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            _call(op, X, log_w, means, U)
+        torch.cuda.synchronize()
+    kinds = {"kernel": 0, "memset": 0, "memcpy": 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            key = e.key.lower()
+            kinds["memset" if "memset" in key else
+                  "memcpy" if "memcpy" in key else "kernel"] += e.count
+    em = op in ("gmm_stats", "gmm_update")
+    assert kinds == {"kernel": 10, "memset": 10 if em else 0, "memcpy": 0}
+
+
+@pytest.mark.parametrize("op", ["gmm_stats", "gmm_update"])
+@pytest.mark.parametrize("N,D,K", [(65536, 4, 3), (2048, 4, 3),
+                                   (3000, 8, 8)])
+def test_em_graph_replay_is_bitwise_equal_to_eager(cuda, op, N, D, K):
+    """The counter's memset and the launch captured in one CUDA graph: each
+    of several replays equals the eager call bit for bit, also after new
+    rows are copied into the captured input (a stale counter or stale
+    partials would show here and not in one eager call)."""
+    X, log_w, means, U = _inputs(N, D, K, cuda, seed=N % 97)
+    _call(op, X, log_w, means, U)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _call(op, X, log_w, means, U)
+    fresh = torch.as_tensor(make_params(N, D, K, seed=99)[0], device=cuda)
+    for r in range(4):
+        if r == 3:
+            X.copy_(fresh)
+        graph.replay()
+        eager = _call(op, X, log_w, means, U)
+        for g, e in zip(captured, eager):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("op", WRAPPERS)
+@pytest.mark.parametrize("N,D,K", LAYOUT_SHAPES)
+def test_transposed_u_needs_no_copy(cuda, op, N, D, K):
+    """U as the EM loop hands it over gives bitwise the outputs of a
+    contiguous U, and the plain version's within the kernel tolerances."""
+    X, log_w, means, U = _inputs(N, D, K, cuda, seed=D + K)
+    Ut = _path_layout(U)
+    assert not Ut.is_contiguous()
+    got = _call(op, X, log_w, means, Ut)
+    for g, w in zip(got, _call(op, X, log_w, means, U)):
+        assert torch.equal(g, w)
+    want = _call(op, X, log_w, means, Ut, plain=True)
+    if op in ("gmm_stats", "gmm_update"):
+        _assert_tuple_close(got, want)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("op", WRAPPERS)
+@pytest.mark.parametrize("N,D,K", LAYOUT_SHAPES)
+def test_nan_u_gives_the_plain_versions_nans(cuda, op, N, D, K):
+    """A non-PD covariance gives an all-NaN factor (`_prec_chol_from_cov`):
+    the kernels give NaN exactly where the plain versions do (GMM.fit's
+    reg escalation reads it), gmm_best the same first NaN index."""
+    X, log_w, means, U = _inputs(N, D, K, cuda, seed=D * K)
+    U[1] = float("nan")
+    got = _call(op, X, log_w, means, U)
+    want = _call(op, X, log_w, means, U, plain=True)
+    for g, w in zip(got, want):
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w)
+            continue
+        nan = torch.isnan(w)
+        assert nan.any() and torch.equal(torch.isnan(g), nan)
+        torch.testing.assert_close(g[~nan], w[~nan], rtol=1e-5, atol=1e-4)

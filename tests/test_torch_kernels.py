@@ -10,6 +10,9 @@ Tolerances are those of tests/test_kernels.py: float32 rtol 1e-5 / atol
 (sums over all rows) are held at rtol 1e-4 / atol 1e-4 x max(|want|, 1),
 that file's `_assert_tuple_close`.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,9 @@ from repro.kernels.gmm_stats import gmm_stats_pallas, gmm_update_pallas  # noqa:
 from repro_torch.kernels import gmm_score as kmod  # noqa: E402
 from repro_torch.kernels import gmm_stats as smod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch import quickstart  # noqa: E402
+from repro_torch.core.features import (COLLECTIVE_FEATURES,  # noqa: E402
+                                       DEVICE_FEATURES, LATENCY_FEATURES)
 
 SHAPES = [(128, 2, 2), (1000, 4, 3), (4096, 8, 8), (777, 3, 5),
           (2048, 16, 4), (513, 8, 16), (64, 32, 2)]
@@ -276,12 +282,109 @@ def test_stats_cuda_wrappers_refuse_cpu_tensors(fn):
 
 
 def test_stats_grid_depends_on_the_shape_alone():
-    """The first pass's grid (hence the order of every sum) is fixed by
-    (N, D, K): one block per 256-row tile, capped so the partials stay
-    under the workspace limit; an empty input still gets one block."""
+    """The grid (hence the order of every sum) is fixed by (N, D, K): one
+    block per 256-row tile, at most 264 (two on each of the H100's 132
+    SMs), and few enough that the partials stay under the workspace limit;
+    an empty input still gets one block."""
+    assert smod.MAX_BLOCKS == 264
     assert smod.grid_blocks(0, 4, 3) == 1
     assert smod.grid_blocks(2048, 4, 3) == 8
-    assert smod.grid_blocks(1 << 20, 4, 3) == smod.MAX_BLOCKS
+    assert smod.grid_blocks(65536, 4, 3) == 256
+    assert smod.grid_blocks(1 << 20, 4, 3) == 264
     e = smod.n_entries(32, 16)
     assert e == 16 + 16 * 32 + 16 * 32 * 32 + 1
-    assert smod.grid_blocks(1 << 20, 32, 16) * e <= smod.WORK_FLOATS
+    assert smod.grid_blocks(1 << 20, 32, 16) == smod.WORK_FLOATS // e == 247
+
+
+# the feature widths the two paths fit (latency 3, device and collective 4)
+# and every component count their detectors can pick (min(3, rows // 32))
+PATH_SHAPES = [(D, K) for D in sorted({len(LATENCY_FEATURES),
+                                       len(COLLECTIVE_FEATURES),
+                                       len(DEVICE_FEATURES)})
+               for K in range(1, quickstart.N_COMPONENTS + 1)]
+
+
+@pytest.mark.parametrize("D,K", PATH_SHAPES)
+def test_specialised_shapes_cover_the_paths(D, K):
+    """Every (D, K) that the main path and the stream path fit and score
+    launches the kernels specialised on it, never the general ones."""
+    assert (D, K) in kmod.SPECIALISED
+    assert kmod.variant(D, K) == "specialised"
+
+
+def test_specialised_list_matches_the_cuda_sources():
+    """The wrappers' list is the sources' GMM_FIXED_SHAPES, and both sources
+    dispatch through it: a specialised call the launcher has no kernel for
+    would be refused (cudaErrorInvalidValue), never rerouted."""
+    csrc = Path(kmod.__file__).parent / "csrc"
+    header = (csrc / "gmm_common.cuh").read_text()
+    body = header[header.index("#define GMM_FIXED_SHAPES(S)"):]
+    body = body[:body.index("\n\n")]
+    pairs = {(int(d), int(k))
+             for d, k in re.findall(r"S\((\d+),\s*(\d+)\)", body)}
+    assert pairs == set(kmod.SPECIALISED)
+    for source in (kmod.SOURCE, smod.SOURCE):
+        text = (csrc / source).read_text()
+        assert '#include "gmm_common.cuh"' in text
+        assert "GMM_FIXED_SHAPES(GMM_CASE)" in text
+
+
+@pytest.mark.parametrize("D,K,want", [
+    (2, 1, "specialised"), (4, 4, "specialised"), (3, 3, "specialised"),
+    (1, 3, "general"), (5, 4, "general"), (4, 5, "general"),
+    (32, 16, "general")])
+def test_variant_boundary(D, K, want):
+    assert kmod.variant(D, K) == want
+
+
+@pytest.mark.parametrize("N,D,K", [(0, 4, 3), (1, 2, 1), (227, 4, 3),
+                                   (2048, 3, 3), (67584, 4, 4),
+                                   (1 << 20, 4, 3), (3000, 32, 16),
+                                   (1 << 20, 32, 16)])
+def test_grid_is_a_function_of_the_shape_alone(N, D, K, monkeypatch):
+    """grid_blocks under the new cap: the same formula at every shape, at
+    most MAX_BLOCKS blocks, partials within WORK_FLOATS, and no question
+    to the device (a card of another size gets the same grid)."""
+    def no_device(*args, **kwargs):
+        raise AssertionError("grid_blocks asked the device")
+
+    for name in ("get_device_properties", "device_count",
+                 "get_device_capability"):
+        monkeypatch.setattr(torch.cuda, name, no_device)
+    nb = smod.grid_blocks(N, D, K)
+    e = smod.n_entries(D, K)
+    assert nb == max(1, min(-(-N // 256), 264, smod.WORK_FLOATS // e))
+    assert 1 <= nb <= smod.MAX_BLOCKS and nb * e <= smod.WORK_FLOATS
+    assert nb == smod.grid_blocks(N, D, K)
+
+
+def test_param_views_keep_the_callers_layout():
+    """The EM loop's U may be a transposed view (`_prec_chol_from_cov`
+    returns L^-T): the wrappers hand it to the kernel as it is, strides and
+    all, where the old wrapper copied it on every call."""
+    g = torch.Generator().manual_seed(0)
+    U = torch.randn((3, 4, 4), generator=g).transpose(-1, -2)
+    means = torch.randn((3, 4), generator=g)
+    assert not U.is_contiguous()
+    mv, Uv = kmod.param_views(means, U)
+    assert Uv.data_ptr() == U.data_ptr() and Uv.stride() == U.stride()
+    assert mv.data_ptr() == means.data_ptr()
+    assert kmod.param_args(mv, Uv) == [means.data_ptr(), 4, 1,
+                                       U.data_ptr(), 16, 1, 4]
+    _, U32 = kmod.param_views(means, U.double())
+    assert U32.dtype == torch.float32 and torch.equal(U32, U)
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """Both sources include csrc/gmm_common.cuh: an edited header must give
+    a new library name, so a stale build is never loaded."""
+    from repro_torch.kernels import build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("k.cu")
+    (tmp_path / "common.cuh").write_text("// two\n")
+    after = build.library_path("k.cu")
+    assert before != after and after.name.startswith("libk-")
+    assert build.library_path("k.cu") == after
