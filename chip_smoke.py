@@ -18,8 +18,10 @@ Phases, each printing one JSON line of its own:
    at near-ties (top two within 1e-3), ties and NaN must match exactly.
    ``gmm_stats`` / ``gmm_update``: the kernel tests' grids (``SHAPES[:5]``,
    ``UPDATE_SHAPES`` with K=1, ``BUCKETS`` x nvalid fractions {1, 0.61,
-   0.25} with the padding rows poisoned to 1e6), nvalid=0, N=0, bf16 X,
-   D=32/K=16 and N=2^20 at D=4/K=3; rtol 1e-4 / atol 1e-4 x max(|want|, 1)
+   0.25} with the padding rows poisoned to 1e6), nvalid=0 (also with an
+   all-NaN U and with NaN rows: NaN exactly where the plain version has it),
+   N=0, bf16 X, D=32/K=16 and N=2^20 at D=4/K=3; rtol 1e-4 / atol 1e-4 x
+   max(|want|, 1)
    (tests/test_kernels.py's `_assert_tuple_close`), and every case called
    twice: the two outputs must be bitwise equal. Then, for all four
    kernels on both sides of the specialised / general boundary: U in the
@@ -34,11 +36,13 @@ Phases, each printing one JSON line of its own:
    (loss within 1e-3 relative, gradients within 1e-2 of their norm).
 4. ``main_path``: `repro_torch.quickstart.run` on ``cuda`` — full-width GPT-2
    124M in bf16, batch 8, sequence 128, 120 steps, op_latency faults (seed 7,
-   0.03 s), per-layer GMM fit and detection on the card. The launch counts
-   are set to 0 just before and read just after: both scoring kernels must
-   have launched and no plain version may have run. The loss must be finite,
-   the STEP layer's hit rate > 0.5 and > 2x its false rate, the governor must
-   act, and the device probe must have lost no sample.
+   0.03 s), the reference quickstart's probes (runtime, operator,
+   collective, device, step), per-layer GMM fit and detection on the card.
+   The launch counts are set to 0 just before and read just after: both
+   scoring kernels must have launched and no plain version may have run.
+   The loss must be finite, the STEP layer's hit rate > 0.5 and > 2x its
+   false rate, the governor must act, the operator layer and the runtime
+   probe must have rows, and the device probe must have lost no sample.
 5. ``stream_path``: `repro_torch.quickstart.run_stream` on ``cuda`` — the
    same model trains 240 steps with a StreamMonitor attached (the
    latency_spike scenario: 3 op_latency bursts of 14 steps after a 96-step
@@ -47,22 +51,33 @@ Phases, each printing one JSON line of its own:
    must have launched and no plain version may have run; the loss must be
    finite, the incidents must match at least 2 of the 3 fault windows
    (recall >= 2/3) with precision >= 0.5, the top-severity incident's
-   deficit must lie mostly on the ``step`` layer (the only layer op_latency
-   perturbs while the operator probe is not ported), the wire must have
-   lost no batch and the device probe no sample. The engine's own suspect
-   layer is printed beside it: by the reference's rule the STEP layer is a
-   symptom, blamed only when no other layer flagged in the cluster, so one
-   stray XLA or device flag of a nat takes the blame from thousands of
-   nats on STEP.
-6. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
+   deficit must lie mostly on a layer op_latency perturbs (``operator`` or
+   ``step``), the wire must have lost no batch and the device probe no
+   sample. The engine's own suspect layer is printed beside it, and listed
+   under ``unmet`` unless it is ``operator``, where the fault is injected.
+6. ``session_path``: the training entry point, `repro_torch.launch.train`,
+   in-process at full width with ``--inject-faults`` and its session
+   (`session_phase`): 100 steps unmonitored, 200 in batch mode and 240 in
+   stream mode with the full probe suite. Per mode: steps/s of the loop,
+   steps/s after the graphed step's set-up calls, rows per layer and
+   probe, the STEP and OPERATOR layers' hit and false
+   rates (batch) or the incidents against the fault windows (stream),
+   incidents with their suspect and heaviest layer, diagnoses, governor
+   actions, kernel launches and plain calls, the runtime probe's rows; the
+   monitoring overhead against the unmonitored rate, both after the set-up
+   calls; runtime-probe rows
+   written inside a detection zone or on the detection worker (must be
+   0). The batch mode's STEP layer must pass the main path's rate gate;
+   its governor action is reported under ``unmet`` when there is none.
+7. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
    K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
-7. ``profile``: torch.profiler over 5 full-width training steps, one
+8. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
 
-The main path and the stream path must launch only specialised kernels
-(the wrappers' ``VARIANTS``, set to 0 before each path and read after).
+Every path must launch only specialised kernels (the wrappers'
+``VARIANTS``, set to 0 before each path and read after).
 Then the ``kernels`` line (each kernel's launches on its path — the main
 path for the scoring kernels, the stream path for the EM kernels — its
 largest error against the plain version at that path's largest shape, its
@@ -833,20 +848,21 @@ def stream_line(st, launches, plain_calls):
         "top_heaviest_layer": (max(top.layer_deficit,
                                    key=top.layer_deficit.get)
                                if top else None),
-        "unmet": ([] if top_suspect == "step" else
-                  [f"top incident's suspect layer is step: the engine "
-                   f"names {top_suspect}"]),
+        "unmet": ([] if top_suspect == "operator" else
+                  [f"top incident's suspect layer is operator (the layer "
+                   f"op_latency perturbs at its source): the engine names "
+                   f"{top_suspect}"]),
+        "runtime_probe": st["runtime_probe"],
         "launches": launches, "plain_calls": plain_calls}
 
 
 def check_stream(st, launches, plain_calls):
     """The stream path's gates. One criterion is reported, not enforced:
-    that the top incident's suspect layer is step. The incident engine
-    treats STEP as a symptom and blames any other layer flagged in the
-    cluster; op_latency perturbs only the STEP rows while the operator
-    probe is not ported, so a few nats of XLA or device flags take the
-    blame. ``stream_line`` lists it under ``unmet``; the gate here is that
-    the top incident's deficit lies mostly on step."""
+    that the top incident's suspect layer is operator, where op_latency is
+    injected (the incident engine treats STEP as a symptom and blames a
+    cause layer flagged in the cluster); ``stream_line`` lists it under
+    ``unmet``. The gate here is that the top incident's deficit lies mostly
+    on a layer op_latency perturbs: operator or step."""
     if not all(math.isfinite(float(v)) for v in st["losses"]):
         raise SmokeFailure("non-finite training loss on the stream path")
     if not all(launches.values()):
@@ -861,12 +877,247 @@ def check_stream(st, launches, plain_calls):
                            f"precision {m.precision}")
     top = st["incidents"][0]
     heaviest = max(top.layer_deficit, key=top.layer_deficit.get)
-    if heaviest != "step":
+    if heaviest not in PERTURBS:
         raise SmokeFailure(f"top incident's deficit lies mostly on "
-                           f"{heaviest}, not step: {top.layer_deficit}")
+                           f"{heaviest}, not operator or step: "
+                           f"{top.layer_deficit}")
     if st["lost_batches"] or st["failed_samples"]:
         raise SmokeFailure(f"lost {st['lost_batches']} wire batches, "
                            f"{st['failed_samples']} device samples")
+
+
+def check_nvalid_zero(ops):
+    """nvalid = 0 with N > 0, on both sides of the specialised / general
+    boundary: the reference multiplies every row's responsibilities by 0,
+    so an all-NaN U or NaN rows make nk, sx and sxx NaN (its ll is 0), and
+    finite inputs give zeros. The kernels must give NaN exactly where the
+    plain version does and equal it elsewhere. Returns the cases."""
+    import torch
+
+    cases = 0
+    for N, D, K in ((256, 4, 3), (300, 6, 5)):
+        for poison in ("nan_u", "nan_rows", "finite"):
+            X, log_w, means, U = em_inputs(N, D, K, 51 + D)
+            if poison == "nan_u":
+                U.fill_(float("nan"))
+            elif poison == "nan_rows":
+                X.fill_(float("nan"))
+            for name in ("gmm_stats", "gmm_update"):
+                fn = getattr(ops, name)
+                want = fn(X, log_w, means, U, nvalid=0, backend="plain")
+                got = fn(X, log_w, means, U, nvalid=0)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    nan = torch.isnan(w)
+                    if not (torch.equal(torch.isnan(g), nan)
+                            and torch.equal(g[~nan], w[~nan])):
+                        raise SmokeFailure(
+                            f"{name} nvalid=0 {poison} N={N} D={D} K={K} "
+                            f"output {i} differs from plain")
+                if poison != "finite" and not bool(
+                        torch.isnan(got[0]).all()):
+                    raise SmokeFailure(f"{name} nvalid=0 {poison}: nk is "
+                                       "not NaN")
+                cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+# which injected fault kinds perturb a layer's rows on one card (the
+# collective schedule is empty, so net_latency perturbs nothing; device
+# telemetry faults perturb only the DEVICE rows)
+PERTURBS = {"step": ("op_latency", "python_latency", "xla_latency"),
+            "operator": ("op_latency",)}
+SESSION_RUNS = (("off", 100), ("batch", 200), ("stream", 240))
+# steps before the steady state: the graphed step's eager warm-up calls and
+# its capture (`train/step.py::CudaGraphed`), hundreds of ms each
+SETUP_STEPS = 3
+
+
+def steady_steps_per_s(step_end_s):
+    """Steps/s after the first SETUP_STEPS steps, so that runs of other
+    lengths compare."""
+    return ((len(step_end_s) - SETUP_STEPS)
+            / (step_end_s[-1] - step_end_s[SETUP_STEPS - 1]))
+
+
+def layer_rates(report, injector, steps):
+    """Per layer of PERTURBS: the share of the steps of the faults that
+    perturb it that it flagged (hit), of the fault-free steps it flagged
+    (false), and the hit share over every injected step (hit_all)."""
+    import numpy as np
+    from repro_torch.core import FaultInjector
+
+    labels = injector.labels(steps)
+    clean = set(np.flatnonzero(~labels).tolist())
+    out = {}
+    for layer, kinds in PERTURBS.items():
+        ls = report.layers.get(layer)
+        if ls is None:
+            out[layer] = None
+            continue
+        flagged = set(ls.anomalous_steps)
+        seen = set(np.flatnonzero(FaultInjector(
+            [f for f in injector.faults if f.kind in kinds]).labels(
+                steps)).tolist())
+        every = set(np.flatnonzero(labels).tolist())
+        out[layer] = {
+            "hit": len(flagged & seen) / max(len(seen), 1),
+            "false": len(flagged & clean) / max(len(clean), 1),
+            "hit_all": len(flagged & every) / max(len(every), 1),
+            "fault_steps": len(seen)}
+    return out
+
+
+def session_phase(train, reset_counts, read_counts, read_variants):
+    """`repro_torch.launch.train` in-process at full width (GPT-2 124M,
+    bf16, batch 8, sequence 128, --inject-faults), once per mode of
+    SESSION_RUNS, with the launcher's legacy probe options (python 1-in-25,
+    device every 0.05 s). The runtime probe's row writer is wrapped for the
+    phase to count rows written inside a detection zone or on the detection
+    plane's worker thread (both must be 0). Returns the phase's line; raises
+    on a failed gate."""
+    import threading
+
+    import torch
+    from repro_torch.core.probes import runtime_probe
+    from repro_torch.detect import in_detection_zone
+
+    leaks = {"in_zone": 0, "on_worker": 0}
+    record = runtime_probe.CudaRuntimeProbe._record
+
+    def counted(self, call, t0, t1):
+        leaks["in_zone"] += in_detection_zone()
+        leaks["on_worker"] += threading.current_thread().name \
+            == "eacgm-detect"
+        record(self, call, t0, t1)
+
+    line = {"phase": "session_path", "modes": {}}
+    runtime_probe.CudaRuntimeProbe._record = counted
+    try:
+        for mode, steps in SESSION_RUNS:
+            spec = {"mode": mode,
+                    "probe_options": train.LEGACY_PROBE_OPTIONS}
+            args = train.parser().parse_args(
+                ["--arch", "gpt2", "--device", "cuda", "--steps", str(steps),
+                 "--batch", "8", "--seq", "128", "--inject-faults",
+                 "--log-every", "0", "--monitor-spec", json.dumps(spec)])
+            reset_counts()
+            out = train.train(args)
+            launches, plain = read_counts()
+            losses = out["losses"]
+            if not all(math.isfinite(v) for v in losses):
+                raise SmokeFailure(f"session_path {mode}: non-finite loss")
+            res = {"steps": steps, "steps_per_s": out["steps_per_s"],
+                   "steady_steps_per_s": steady_steps_per_s(
+                       out["step_end_s"]),
+                   "train_s": out["seconds"], "setup_s": out["setup_s"],
+                   "finalize_s": out["finalize_s"],
+                   "loss_first": losses[0], "loss_last": losses[-1]}
+            if mode != "off":
+                res.update(session_summary(out, mode, steps, launches, plain,
+                                           read_variants(
+                                               f"session_path {mode}")))
+            line["modes"][mode] = res
+            del out
+            torch.cuda.empty_cache()
+    finally:
+        runtime_probe.CudaRuntimeProbe._record = record
+    # monitoring overhead in the steady state (the set-up steps apart)
+    off = line["modes"]["off"]["steady_steps_per_s"]
+    line["overhead"] = {
+        mode: 1.0 - line["modes"][mode]["steady_steps_per_s"] / off
+        for mode in ("batch", "stream")}
+    line["runtime_rows_in_zone"] = leaks["in_zone"]
+    line["runtime_rows_on_worker"] = leaks["on_worker"]
+    try:
+        line["unmet"] = check_session(line)
+    finally:
+        emit(line)
+    return line
+
+
+def session_summary(out, mode, steps, launches, plain, variants):
+    """One monitored mode of the session phase, as printed. The batch
+    mode's verdict is its final detections (hit and false rates per layer);
+    the stream mode's is its incidents, matched against the windows of the
+    faults that perturb the operator and step layers (its final detections
+    cover the last tick only)."""
+    from repro_torch.core import FaultInjector
+    from repro_torch.stream import match_incidents
+
+    report, session = out["report"], out["session"]
+    emitted = report.overhead[0]["emitted_per_probe"]
+    xla = session.collector["xla"]
+    injector = out["injector"]
+    if mode == "batch":
+        verdict = {"rates": layer_rates(report, injector, steps)}
+    else:
+        windows = FaultInjector([f for f in injector.faults
+                                 if f.kind in PERTURBS["step"]]).windows()
+        m = match_incidents(report.incidents, windows,
+                            grace_steps=session.spec.detector.flush_every)
+        verdict = {"match": {"windows": windows, "recall": m.recall,
+                             "precision": m.precision,
+                             "window_hits": m.window_hits,
+                             "spurious": m.spurious}}
+    return {
+        "rows_per_layer": {k: v.events for k, v in report.layers.items()},
+        "rows_per_probe": emitted, **verdict,
+        "faults": [f.to_json() for f in injector.faults],
+        "incidents": [
+            {"id": i.incident_id, "suspect": i.suspect_layer.value,
+             "heaviest": max(i.layer_deficit, key=i.layer_deficit.get),
+             "severity": i.severity, "n_flags": i.n_flags,
+             "steps": [min(i.steps), max(i.steps)] if i.steps else []}
+            for i in sorted(report.incidents, key=lambda i: -i.severity)],
+        "diagnoses": [{"incident": d.incident_id, "fault_kind": d.fault_kind,
+                       "confidence": d.confidence, "action": d.action.kind}
+                      for d in report.diagnoses],
+        "governor_actions": session.action_counts(),
+        "detect_plane": report.overhead.get("detect_plane"),
+        "runtime_probe": {"rows": xla.emitted,
+                          "dropped_in_zone": xla.dropped_in_zone},
+        "launches": launches, "plain_calls": plain, "variants": variants}
+
+
+def check_session(line):
+    """The session phase's gates: the batch mode's STEP layer as the main
+    path's (hit > 0.5 and > 2x false, against the faults that perturb it);
+    OPERATOR and XLA rows in every monitored mode; its kernels launched, no
+    plain version; no runtime row inside a detection zone or on the worker
+    thread. One criterion is reported, not enforced: a governor action in
+    the batch mode. The batch session forms incidents only past its final
+    fit's clean prefix (the reference's `_batch_incidents` floor), and the
+    governor's rate path acts above a 0.25 anomaly rate; a fault inside the
+    prefix gives neither (``unmet`` in the line)."""
+    if line["runtime_rows_in_zone"] or line["runtime_rows_on_worker"]:
+        raise SmokeFailure(f"runtime-probe rows inside a detection zone: "
+                           f"{line['runtime_rows_in_zone']}, on the worker: "
+                           f"{line['runtime_rows_on_worker']}")
+    for mode, want in (("batch", ("gmm_score", "gmm_best")),
+                       ("stream", ("gmm_score", "gmm_best", "gmm_stats",
+                                   "gmm_update"))):
+        m = line["modes"][mode]
+        if not all(m["launches"][k] for k in want):
+            raise SmokeFailure(f"session_path {mode}: a kernel was not "
+                               f"launched: {m['launches']}")
+        if any(m["plain_calls"].values()):
+            raise SmokeFailure(f"session_path {mode}: plain versions ran: "
+                               f"{m['plain_calls']}")
+        rows = m["rows_per_probe"]
+        if not (rows["operator"] and rows["xla"]
+                and m["runtime_probe"]["rows"]):
+            raise SmokeFailure(f"session_path {mode}: no operator or "
+                               f"runtime rows: {rows}")
+    b = line["modes"]["batch"]
+    step = b["rates"]["step"]
+    if step is None or not (step["hit"] > 0.5
+                            and step["hit"] > 2 * step["false"]):
+        raise SmokeFailure(f"session_path batch: STEP detection too weak: "
+                           f"{step}")
+    return [] if (b["governor_actions"] or b["diagnoses"]) else [
+        "batch: a governor action (none: no incident past the final fit's "
+        "prefix, layer anomaly rates under the governor's 0.25)"]
 
 
 def build_phase(build, kmod, card):
@@ -923,8 +1174,10 @@ def kernel_check_phase(ops, kmod, smod):
     layout_cases = check_layout_and_nan(ops)
     boundary = check_boundary(ops, kmod, smod)
     replays = check_em_graph_replay(ops)
+    nvalid_zero = check_nvalid_zero(ops)
     emit({"phase": "kernel_check", "cases": cases + 2,
-          "em_cases": len(em_cases()), "max_abs_err": worst,
+          "em_cases": len(em_cases()), "nvalid_zero_cases": nvalid_zero,
+          "max_abs_err": worst,
           "em_max_rel_err": em_rel, "em_bitwise_repeatable": True,
           "transposed_and_nan_u_cases": layout_cases,
           "boundary": boundary, "em_graph_replays_bitwise": replays})
@@ -990,7 +1243,9 @@ def main() -> int:
           "events": out["n_events"], "step_hit_rate": hit,
           "step_false_rate": false, "actions": len(out["actions"]),
           "step_ms_p10_p50_p90": out["step_ms_p10_p50_p90"],
-          "layer_shapes": out["layer_shapes"], "launches": launches,
+          "layer_shapes": out["layer_shapes"],
+          "rows_per_layer": out["rows_per_layer"],
+          "runtime_probe": out["runtime_probe"], "launches": launches,
           "variants": variants, "plain_calls": plain_calls,
           "failed_samples": out["failed_samples"]})
     if not all(math.isfinite(float(v)) for v in losses):
@@ -1010,6 +1265,10 @@ def main() -> int:
     if out["failed_samples"]:
         raise SmokeFailure(f"device probe lost {out['failed_samples']} "
                            "samples")
+    if not (out["rows_per_layer"]["operator"] and out["runtime_probe"]["rows"]
+            and Layer.OPERATOR in out["results"]):
+        raise SmokeFailure(f"main path: no operator or runtime-probe rows: "
+                           f"{out['rows_per_layer']}, {out['runtime_probe']}")
     shape = max(out["layer_shapes"].values())
     del out
 
@@ -1020,8 +1279,13 @@ def main() -> int:
     s_variants = read_variants("stream_path")
     emit({**stream_line(st, s_launches, s_plain), "variants": s_variants})
     check_stream(st, s_launches, s_plain)
+    del st
 
-    # 5. times at each path's largest shape and at scale
+    # 5. the training entry point with the session, three modes
+    from repro_torch.launch import train
+    session_phase(train, reset_counts, read_counts, read_variants)
+
+    # 6. times at each path's largest shape and at scale
     N, D, K = shape
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
     errs.update(check_em_case(ops, *STREAM_FIT_SHAPE, torch.float32,

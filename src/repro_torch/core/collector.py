@@ -6,7 +6,7 @@ the collector to observe the step callable it already has):
 
     col = Collector.standard()
     with col.monitoring():
-        step_fn = col.observe_step_fn(step_fn)
+        step_fn = col.observe_step_fn(step_fn, sample_args=(state, batch))
         for batch in data:
             state, metrics = step_fn(state, batch)
     cols = col.drain_columns()
@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Callable, Dict, List
+import warnings
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -43,20 +44,27 @@ class Collector:
 
     # -- construction ---------------------------------------------------------
     @staticmethod
-    def standard(device_interval: float = 0.25, n_devices: int = 1,
-                 capacity: int = 1_000_000,
+    def standard(python_sampling: int = 1, device_interval: float = 0.25,
+                 n_devices: int = 1, capacity: int = 1_000_000,
+                 with_python: bool = True,
+                 python_include=("repro_torch", "torch"),
                  peak_w: float = H100_POWER_LIMIT_W) -> "Collector":
-        """The standard suite of the probes ported so far: ``collective``,
-        ``device`` and ``step`` (the JAX package's ``xla``, ``operator`` and
-        ``python`` probes come with a later slice). ``peak_w`` is the power
-        limit the simulated card telemetry peaks at."""
-        # late import, as in the reference: the session package sits above
+        """Deprecated shim: the standard suite now comes from the session
+        probe registry (`repro_torch.session.registry`); prefer building a
+        `repro_torch.session.Session` from a `MonitorSpec`. ``peak_w`` is
+        the power limit the simulated card telemetry peaks at."""
+        # late import: the session package imports this module
         from repro_torch.session.registry import build_probes
 
-        options = {"device": {"interval": device_interval,
-                              "n_devices": n_devices, "peak_w": peak_w}}
-        return Collector(build_probes(["collective", "device", "step"],
-                                      options), capacity)
+        names = (["python"] if with_python else []) + \
+            ["xla", "operator", "collective", "device", "step"]
+        options = {
+            "python": {"include": python_include,
+                       "sample_every": python_sampling},
+            "device": {"interval": device_interval, "n_devices": n_devices,
+                       "peak_w": peak_w},
+        }
+        return Collector(build_probes(names, options), capacity)
 
     def __getitem__(self, name: str) -> Probe:
         try:
@@ -88,13 +96,26 @@ class Collector:
             self.detach()
 
     # -- observation hooks ------------------------------------------------------
-    def observe_step_fn(self, fn: Callable, *, flops_per_step: float = 0.0,
+    def observe_step_fn(self, fn: Callable, *,
+                        sample_args: Optional[tuple] = None,
+                        flops_per_step: float = 0.0,
                         mem_gb: float = 0.0) -> Callable:
-        """Wrap a built step callable. Non-intrusive: operates only on
-        objects the launcher already holds."""
+        """Wrap a built step callable and read its operator stream off one
+        meta-tensor run on ``sample_args``. Non-intrusive: operates only on
+        objects the launcher already holds, and leaves them unchanged. (The
+        reference's ``lowered=`` reads a collective schedule off compiled
+        HLO; a one-card torch step has neither.)"""
         step = self.step_probe
         step.flops_per_step = flops_per_step
         step.mem_gb_per_step = mem_gb
+        if sample_args is not None and "operator" in self._by_name:
+            try:
+                self._by_name["operator"].register_fn(fn, *sample_args)
+            except Exception as e:
+                warnings.warn(
+                    f"probe 'operator': register_fn failed ({e!r}); "
+                    "operator-layer events will be missing", RuntimeWarning,
+                    stacklevel=2)
         return step.wrap(fn)
 
     # -- data -----------------------------------------------------------------

@@ -3,8 +3,8 @@
 The monitor (not the user) wraps the step function at attach time — exactly
 the eBPF model of hooking a symbol at runtime: the training loop's code is
 unchanged, the launcher simply executes whatever callable the monitor hands
-back. Records wall-time per step and drives the dependent probes (collective
-schedule replay, device duty cycle).
+back. Records wall-time per step and drives the dependent probes (operator
+latency attribution, collective schedule replay, device duty cycle).
 """
 from __future__ import annotations
 
@@ -22,11 +22,12 @@ from repro_torch.core.probes.device_probe import H100_PEAK_FLOPS
 class StepProbe(Probe):
     name = "step"
 
-    def __init__(self, collective_probe=None, device_probe=None,
-                 flops_per_step: float = 0.0,
+    def __init__(self, operator_probe=None, collective_probe=None,
+                 device_probe=None, flops_per_step: float = 0.0,
                  peak_flops: float = H100_PEAK_FLOPS,
                  mem_gb_per_step: float = 0.0):
         super().__init__()
+        self.operator_probe = operator_probe
         self.collective_probe = collective_probe
         self.device_probe = device_probe
         self.flops_per_step = flops_per_step
@@ -51,9 +52,11 @@ class StepProbe(Probe):
             t0 = self.now()
             out = fn(*args, **kwargs)
             # PyTorch returns before the card finishes: wait for the step's
-            # kernels so the duration is the step's, not its enqueue time
+            # kernels (its stream, not the device: the detection plane's
+            # sweeps run on a stream of their own) so the duration is the
+            # step's, not its enqueue time
             if torch.cuda.is_initialized():
-                torch.cuda.synchronize()
+                torch.cuda.current_stream().synchronize()
             exec_dur = self.now() - t0
             if self.extra_latency:  # python-layer fault: real host-side stall
                 time.sleep(self.extra_latency)
@@ -67,8 +70,12 @@ class StepProbe(Probe):
                            dur=exec_dur + self.extra_xla, step=step, pid=pid)
             self.emit_rows(Layer.STEP, "train_step", t0, dur=dur, step=step,
                            pid=pid)
+            comm = 0.0
             if self.collective_probe is not None and self.collective_probe.attached:
-                self.collective_probe.observe_step(step, t0)
+                comm = self.collective_probe.observe_step(step, t0)
+            if self.operator_probe is not None and self.operator_probe.attached:
+                self.operator_probe.observe_step(
+                    step, max(exec_dur - comm, 0.0) + self.extra_op, t0)
             if self.device_probe is not None:
                 duty = 0.0
                 if dur > 0 and self.flops_per_step:

@@ -9,6 +9,14 @@
 //   resp_nk = softmax_k(log w_k + log p_nk),  norm_n = logsumexp_k(...)
 //   nk_k = sum_n resp_nk            sx_kd  = sum_n resp_nk x_nd
 //   sxx_kde = sum_n resp_nk x_nd x_ne           ll = sum_n norm_n
+// The reference masks a padding row by multiplying its resp by 0, so a
+// padding row whose E-step is not finite still makes nk, sx and sxx NaN
+// (its norm is selected away: XLA turns that same-shape multiply by the
+// mask into a select, so ll stays 0). With nvalid >= 1 the rows >= nvalid
+// are skipped (never loaded). With nvalid = 0 and N > 0 every row is read
+// and its resp weighted by 0 (`weight`) and its norm dropped, so the
+// outputs are zeros, or NaN where the reference's are: a non-finite U,
+// mean or padding row.
 // gmm_update adds the M-step: mu = sx / (nk + 1e-10),
 // Sigma = sxx / (nk + 1e-10) - mu mu^T, and returns nk without the 1e-10.
 //
@@ -44,7 +52,7 @@
 //   (GMM_FIXED_SHAPES) the kernel is specialised: each warp streams its
 //   own tiles of 32 rows through a 4-deep ring in shared memory by 16-byte
 //   cp.async of the tile's span, with no block barrier in the loop (rows
-//   >= nvalid are never loaded); the row, U, mu U, log|det U| and log w
+//   >= nvalid are never loaded, but at nvalid = 0); the row, U, mu U, log|det U| and log w
 //   live in registers and the density is fully unrolled; resp_k is
 //   exp(logr_k - m) / s (K exps a row, not 2 K); each thread keeps its own
 //   nk, sx, the symmetric half of sxx and ll in registers (K (1 + D + D (D
@@ -221,7 +229,7 @@ __device__ __forceinline__ void sum_partials(const float* partial, float* tot,
 template <typename T, int D, int K>
 __global__ void __launch_bounds__(kThreads, em_min_blocks(D, K))
 em_fixed(const T* __restrict__ X, Params p, int64_t n_eff, bool m_step,
-         float* __restrict__ nk, float* __restrict__ sx,
+         float weight, float* __restrict__ nk, float* __restrict__ sx,
          float* __restrict__ sxx, float* __restrict__ ll,
          float* partial, unsigned* __restrict__ ticket) {
   constexpr int E = n_fixed_entries(D, K);
@@ -281,11 +289,12 @@ em_fixed(const T* __restrict__ X, Params p, int64_t n_eff, bool m_step,
         ek[k] = expf(logr[k] - m);
         s += ek[k];
       }
-      const float norm = m + logf(s);
+      // weight is 1, or 0 for nvalid = 0 (the reference's mask)
+      const float norm = weight != 0.f ? m + logf(s) : 0.f;
       const float inv_s = __frcp_rn(s);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const float rk = ek[k] * inv_s;
+        const float rk = ek[k] * inv_s * weight;
         acc[k] += rk;
 #pragma unroll
         for (int d = 0; d < D; ++d) {
@@ -326,7 +335,7 @@ em_fixed(const T* __restrict__ X, Params p, int64_t n_eff, bool m_step,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 em_general(const T* __restrict__ X, Params p, int64_t n_eff, bool m_step,
-           int D, int K, int G, float* __restrict__ nk,
+           int D, int K, int G, float weight, float* __restrict__ nk,
            float* __restrict__ sx, float* __restrict__ sxx,
            float* __restrict__ ll, float* partial,
            unsigned* __restrict__ ticket) {
@@ -383,9 +392,9 @@ em_general(const T* __restrict__ X, Params p, int64_t n_eff, bool m_step,
       const float norm = m + logf(s);
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) sR[tid * K + k] = expf(logr[k] - norm);
+        if (k < K) sR[tid * K + k] = expf(logr[k] - norm) * weight;
       }
-      sN[tid] = norm;
+      sN[tid] = weight != 0.f ? norm : 0.f;
     }
     __syncthreads();
 
@@ -435,7 +444,10 @@ int launch(const void* Xv, const Params& p, void* nk, void* sx, void* sxx,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const T* X = static_cast<const T*>(Xv);
-  const int64_t n_eff = nvalid < N ? nvalid : N;
+  // nvalid = 0: every row, weighted by 0 (see the head of the file)
+  const bool masked = nvalid == 0 && N > 0;
+  const int64_t n_eff = masked ? N : nvalid < N ? nvalid : N;
+  const float weight = masked ? 0.f : 1.f;
   float* partial = static_cast<float*>(work);
   // the ticket counter sits after the nb * E partials of the longer layout
   unsigned* ticket = reinterpret_cast<unsigned*>(
@@ -448,9 +460,9 @@ int launch(const void* Xv, const Params& p, void* nk, void* sx, void* sxx,
   if (D == d && K == k) {                                                  \
     cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);     \
     if (err != cudaSuccess) return static_cast<int>(err);                  \
-    em_fixed<T, d, k><<<nb, kThreads, 0, s>>>(X, p, n_eff, m_step, o[0],   \
-                                              o[1], o[2], o[3], partial,   \
-                                              ticket);                     \
+    em_fixed<T, d, k><<<nb, kThreads, 0, s>>>(X, p, n_eff, m_step, weight, \
+                                              o[0], o[1], o[2], o[3],      \
+                                              partial, ticket);            \
     return static_cast<int>(cudaGetLastError());                           \
   }
     GMM_FIXED_SHAPES(GMM_CASE)
@@ -468,8 +480,8 @@ int launch(const void* Xv, const Params& p, void* nk, void* sx, void* sxx,
   if (err) return err;
   err = static_cast<int>(cudaMemsetAsync(ticket, 0, sizeof(unsigned), s));
   if (err) return err;
-  kernel<<<nb, kThreads, smem, s>>>(X, p, n_eff, m_step, D, K, G, o[0], o[1],
-                                    o[2], o[3], partial, ticket);
+  kernel<<<nb, kThreads, smem, s>>>(X, p, n_eff, m_step, D, K, G, weight,
+                                    o[0], o[1], o[2], o[3], partial, ticket);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,7 +7,10 @@ E-step sufficient statistics nk, sx, sxx and the summed log-likelihood) and
 M-step fused in: nk, the new means and covariances, the log-likelihood).
 Both take ``nvalid``, a row count at run time: rows at index >= nvalid are
 padding and are never read, so one kernel serves every window size of a
-power-of-two bucket (`repro_torch.detect.cache`).
+power-of-two bucket (`repro_torch.detect.cache`). At ``nvalid = 0`` (and
+N > 0) every row is read and weighted by 0, as the reference masks them, so
+the outputs are zeros, or NaN where a row's E-step is not finite (a NaN U,
+say), as the reference's and the plain version's are.
 
 They take CUDA tensors only and raise on anything else;
 `repro_torch.kernels.ops` sends CPU tensors to the plain versions in
@@ -101,7 +104,7 @@ def _launch(name: str, X: torch.Tensor, log_weights: torch.Tensor,
     outs = (torch.empty((K,), **f32), torch.empty((K, D), **f32),
             torch.empty((K, D, D), **f32), torch.empty((), **f32))
     nb, work = workspace(N, D, K, X.device)
-    # N = 0 or nvalid = 0 still launches one block, which writes zeros
+    # N = 0 still launches one block, which writes zeros
     with torch.cuda.device(X.device):  # the launch goes to the current card
         rc = _fn(f"{name}_launch")(
             X.data_ptr(), _X_DTYPES[X.dtype], log_w.data_ptr(),

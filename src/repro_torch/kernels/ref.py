@@ -91,10 +91,13 @@ def _stats(X, log_weights, means, prec_chol, nvalid):
     norm = m + torch.log(torch.sum(torch.exp(log_r - m), dim=1, keepdim=True))
     resp = torch.exp(log_r - norm)  # (N, K)
     if nvalid is not None:
-        valid = (torch.arange(X.shape[0], device=X.device)
-                 < nvalid).to(torch.float32)
-        resp = resp * valid[:, None]
-        norm = norm * valid[:, None]
+        # as the reference kernel masks them: padding responsibilities are
+        # multiplied by 0 (a NaN row stays NaN), padding norms are selected
+        # away (XLA turns the reference's same-shape multiply by the
+        # converted mask into a select), so ll never sees a padding row
+        valid = torch.arange(X.shape[0], device=X.device) < nvalid
+        resp = resp * valid[:, None].to(torch.float32)
+        norm = torch.where(valid[:, None], norm, 0.0)
     nk = torch.sum(resp, dim=0)
     sx = resp.T @ X  # (K, D)
     sxx = torch.einsum("nk,nd,ne->kde", resp, X, X)

@@ -13,7 +13,10 @@ vocab 50257 padded to 50304) in bf16, batch 8, sequence 128, on ``cuda``.
 ``--mode batch`` (the default, `run`, 120 steps):
 
 1. an ordinary training setup — nothing in it knows about monitoring;
-2. the collector attaches at runtime and wraps the step callable;
+2. the collector attaches at runtime (the CUDA-runtime, operator,
+   collective, device and step probes, as the JAX package's quickstart has
+   them), wraps the step callable and reads its operator stream off one
+   meta-tensor run of the step;
 3. the fault injector perturbs the probes (pytorchfi/chaosblade analogues);
 4. a FullStackMonitor fits one GMM per layer on the fault-free steps and
    flags every event (Definition 1) — the ``gmm_score`` and ``gmm_best``
@@ -57,6 +60,12 @@ FLUSH_EVERY = 20  # stream mode: steps between detection ticks
 N_COMPONENTS = 3  # GMM components of both detectors (fewer on small layers)
 
 
+def probe_counts(probe) -> Dict[str, int]:
+    """The runtime probe's rows and the calls it dropped inside a detection
+    zone."""
+    return {"rows": probe.emitted, "dropped_in_zone": probe.dropped_in_zone}
+
+
 def _workload(reduced_model: bool, dev, steps: int):
     """The monitored job: GPT-2 (full width in bf16, batch 8, sequence 128;
     or the reduced model in float32, batch 4, sequence 32), AdamW, its
@@ -83,15 +92,21 @@ def run(*, reduced_model: bool = False, device: DeviceLike = None,
     dev = resolve_device(device)
     batch, seq, data, state, step_fn = _workload(reduced_model, dev, steps)
 
-    collector = Collector.standard(device_interval=DEVICE_INTERVAL,
+    collector = Collector.standard(with_python=False,
+                                   device_interval=DEVICE_INTERVAL,
                                    peak_w=peak_w)
     injector = FaultInjector.random_schedule(
         steps, ["op_latency"], seed=7, anomaly_fraction=1 / 6,
         magnitudes={"op_latency": 0.03})
     losses = []
-    t_train = time.perf_counter()
     with collector.monitoring():
-        fn = collector.observe_step_fn(step_fn)
+        # the operator probe's one meta-tensor run of the step: set-up, not
+        # a training step, so outside the timed loop
+        t_register = time.perf_counter()
+        fn = collector.observe_step_fn(step_fn,
+                                       sample_args=(state, data.batch(0)))
+        t_train = time.perf_counter()
+        register_s = t_train - t_register
         for s in range(steps):
             injector.apply(s, collector)
             state, metrics = fn(state, batch_to_device(data.batch(s), dev))
@@ -136,12 +151,17 @@ def run(*, reduced_model: bool = False, device: DeviceLike = None,
     return {
         "device": str(dev), "steps": steps, "batch": batch, "seq": seq,
         "losses": losses, "steps_per_s": steps / train_s,
+        "register_s": register_s,
         "detect_s": detect_s, "n_events": int(cols["ts"].shape[0]),
         "results": results, "rates": rates,
         "step_hit_rate": rates.get(Layer.STEP.value, (0.0, 0.0))[0],
         "step_false_rate": rates.get(Layer.STEP.value, (0.0, 0.0))[1],
         "actions": actions, "layer_shapes": shapes,
         "step_ms_p10_p50_p90": step_ms,
+        "rows_per_layer": {layer.value: int((cols["layer"]
+                                             == LAYER_CODE[layer]).sum())
+                           for layer in Layer},
+        "runtime_probe": probe_counts(collector["xla"]),
         "failed_samples": collector["device"].failed_samples,
     }
 
@@ -178,7 +198,8 @@ def run_stream(*, reduced_model: bool = False, device: DeviceLike = None,
     injector = scenario.injector(steps)
     eval_start = int(steps * scenario.clean_fraction)
 
-    collector = Collector.standard(device_interval=DEVICE_INTERVAL,
+    collector = Collector.standard(with_python=False,
+                                   device_interval=DEVICE_INTERVAL,
                                    peak_w=peak_w)
     detector = OnlineGMMDetector(n_components=N_COMPONENTS,
                                  contamination=0.02, min_events=32, seed=0,
@@ -195,9 +216,14 @@ def run_stream(*, reduced_model: bool = False, device: DeviceLike = None,
             torch.cuda.synchronize(dev)
         setup_ms.append(1e3 * (time.perf_counter() - t0))
     losses, modes = [], []
-    t_train = time.perf_counter()
     with collector.monitoring():
-        fn = collector.observe_step_fn(step_fn)
+        # the operator probe's one meta-tensor run of the step: set-up, not
+        # a training step, so outside the timed loop
+        t_register = time.perf_counter()
+        fn = collector.observe_step_fn(step_fn,
+                                       sample_args=(state, data.batch(0)))
+        t_train = time.perf_counter()
+        register_s = t_train - t_register
         for s in range(steps):
             if s == eval_start:
                 mon.warmup()
@@ -226,6 +252,7 @@ def run_stream(*, reduced_model: bool = False, device: DeviceLike = None,
     return {
         "device": str(dev), "steps": steps, "batch": batch, "seq": seq,
         "losses": losses, "steps_per_s": steps / train_s,
+        "register_s": register_s,
         "setup_ms": setup_ms, "incidents": incidents,
         "match": match_incidents(incidents, injector.windows(),
                                  grace_steps=FLUSH_EVERY),
@@ -240,6 +267,7 @@ def run_stream(*, reduced_model: bool = False, device: DeviceLike = None,
                                  / max(shipped, 1)),
         "lost_batches": stats["aggregator"]["lost_batches"],
         "window_sizes": stats["aggregator"]["window_sizes"],
+        "runtime_probe": probe_counts(collector["xla"]),
         "failed_samples": collector["device"].failed_samples,
     }
 

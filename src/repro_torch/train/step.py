@@ -100,7 +100,10 @@ class CudaGraphed:
             self._batch = {k: v.clone() for k, v in batch.items()}
             self._ptrs = ptrs
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            # thread-local: a detection sweep that touches CUDA from another
+            # thread during the capture must not invalidate it
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
                 self._out = self.fn(params, self._batch)
         else:
             if ptrs != self._ptrs:

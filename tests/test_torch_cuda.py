@@ -330,3 +330,94 @@ def test_nan_u_gives_the_plain_versions_nans(cuda, op, N, D, K):
         nan = torch.isnan(w)
         assert nan.any() and torch.equal(torch.isnan(g), nan)
         torch.testing.assert_close(g[~nan], w[~nan], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("poison", ["nan_u", "nan_rows", "finite"])
+@pytest.mark.parametrize("op", ["gmm_stats", "gmm_update"])
+@pytest.mark.parametrize("N,D,K", [(256, 4, 3), (300, 6, 5)])
+def test_nvalid_zero_reads_every_row_like_the_plain_version(cuda, op, N, D,
+                                                            K, poison):
+    """nvalid = 0, N > 0: the reference multiplies every row's resp by 0,
+    so a NaN U or NaN rows make nk, sx and sxx NaN (ll stays 0); finite
+    inputs give zeros. The kernel (specialised and general) gives NaN in
+    exactly the plain version's entries and equals it elsewhere."""
+    X, means, U = make_params(N, D, K, seed=12)
+    if poison == "nan_u":
+        U[:] = np.nan
+    elif poison == "nan_rows":
+        X[:] = np.nan
+    X, means, U = (torch.as_tensor(a, device=cuda) for a in (X, means, U))
+    log_w = torch.log(torch.full((K,), 1.0 / K, device=cuda))
+    fn = getattr(ops, op)
+    want = fn(X, log_w, means, U, nvalid=0, backend="plain")
+    got = fn(X, log_w, means, U, nvalid=0)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        finite = ~torch.isnan(w)
+        assert torch.equal(g[finite], w[finite])
+    if poison != "finite":
+        assert torch.isnan(got[0]).all() and float(got[3]) == 0.0
+
+
+def test_runtime_probe_times_graph_launches(cuda):
+    """The runtime probe on the card: a graph replay gives a cudaGraphLaunch
+    row (host time) and, once a hooked synchronisation has returned, a
+    graph_exec row (device time, CUDA events); a stream synchronisation its
+    own row; nothing inside a detection zone; the hooks gone after."""
+    from repro_torch.core.events import EventTable
+    from repro_torch.core.probes import CudaRuntimeProbe
+    from repro_torch.detect import detection_zone
+
+    x = torch.ones(256, 256, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x @ x
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x @ x
+    replay = torch.cuda.CUDAGraph.replay
+    table = EventTable(100)
+    probe = CudaRuntimeProbe()
+    probe.attach(table)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.current_stream().synchronize()
+    with detection_zone():
+        graph.replay()
+        torch.cuda.synchronize()
+    probe.detach()
+    rows = table.drain_columns()
+    names = [str(n) for n in rows["name"]]
+    assert names.count("cudaGraphLaunch") == 3
+    assert names.count("cudaStreamSynchronize") == 3
+    assert names.count("graph_exec") == 3
+    assert probe.dropped_in_zone == 2
+    exec_dur = rows["dur"][np.array(names) == "graph_exec"]
+    assert np.all(exec_dur > 0) and np.all(exec_dur < 1.0)
+    assert torch.cuda.CUDAGraph.replay is replay
+    assert float(y[0, 0]) == 256.0
+
+
+def test_launcher_session_on_the_card(cuda):
+    """The launcher's batch session on the card at the reduced size: the
+    detection plane gets a CUDA stream of its own, its sweeps launch the
+    scoring kernels and no plain version, the runtime probe writes rows,
+    and the report carries the operator, runtime and step layers."""
+    from repro_torch.launch import train
+
+    launched, plain = dict(kmod.LAUNCHES), dict(ref.CALLS)
+    args = train.parser().parse_args(
+        ["--reduced", "--steps", "60", "--batch", "4", "--seq", "32",
+         "--monitor-spec", '{"mode": "batch", "detector": {"sweep_every": '
+         '20, "min_events": 16}}', "--inject-faults", "--log-every", "0"])
+    out = train.train(args)
+    session, report = out["session"], out["report"]
+    assert isinstance(session._executor.stream, torch.cuda.Stream)
+    assert {"operator", "xla", "step"} <= set(report.layers)
+    assert kmod.LAUNCHES["gmm_score"] > launched["gmm_score"]
+    assert kmod.LAUNCHES["gmm_best"] > launched["gmm_best"]
+    assert dict(ref.CALLS) == plain
+    assert session.collector["xla"].emitted > 0
+    assert np.isfinite(out["losses"]).all()

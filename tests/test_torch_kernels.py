@@ -249,6 +249,33 @@ def test_nvalid_zero_and_empty_give_zeros(op):
                        STATS_NAMES[op])
 
 
+@pytest.mark.parametrize("poison", ["nan_u", "nan_rows"])
+@pytest.mark.parametrize("op", ["stats", "update"])
+@pytest.mark.parametrize("N,D,K", [(256, 4, 3), (300, 6, 5)])
+def test_nvalid_zero_with_non_finite_input_is_nan_like_pallas(N, D, K, op,
+                                                              poison):
+    """nvalid=0 with an all-NaN U, or NaN padding rows: the reference
+    kernel masks responsibilities by multiplying by 0, so nk, sx and sxx are
+    NaN, and selects its norms away, so ll is 0. The plain version (and the
+    CUDA kernels, which read every row at nvalid=0) give NaN in exactly the
+    same entries and the same ll. Exact: NaN masks equal, no tolerance."""
+    X, means, U = make_params(N, D, K, seed=9)
+    if poison == "nan_u":
+        U[:] = np.nan
+    else:
+        X[:] = np.nan
+    got = torch_stats(op, X, log_w(K), means, U, 0)
+    want = jax_stats(op, X, log_w(K), means, U, 0, "pallas")
+    for g, w, name in zip(got, want, STATS_NAMES[op]):
+        w = np.asarray(w)
+        if name == "ll":
+            np.testing.assert_array_equal(g, w, err_msg=name)
+            continue
+        assert np.isnan(w).all(), name
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w),
+                                      err_msg=name)
+
+
 def test_gmm_stats_bf16_x_matches_pallas():
     X, means, U = make_params(512, 6, 4, seed=8)
     Xj = jnp.asarray(X).astype("bfloat16")

@@ -50,7 +50,7 @@ def test_monitored_training_detects_injected_faults():
     state = init_train_state(cfg, opt, seed=0, device=CPU)
     step_fn = make_train_step(cfg, Runtime(torch.float32), opt)
 
-    col = Collector.standard(device_interval=0.01)
+    col = Collector.standard(with_python=False, device_interval=0.01)
     inj = FaultInjector.random_schedule(
         120, ["op_latency"], seed=7, anomaly_fraction=1 / 6,
         magnitudes={"op_latency": 0.03})
@@ -58,7 +58,8 @@ def test_monitored_training_detects_injected_faults():
     torch.set_num_threads(1)
     try:
         with col.monitoring():
-            fn = col.observe_step_fn(step_fn)
+            fn = col.observe_step_fn(step_fn,
+                                     sample_args=(state, data.batch(0)))
             for s in range(120):
                 inj.apply(s, col)
                 state, m = fn(state, data.batch(s))
@@ -202,6 +203,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, env=env, cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert len(mods) > 30
+    # the subpackages and modules of the session slice are walked too
+    assert {"repro_torch.diagnosis.engine", "repro_torch.diagnosis.report",
+            "repro_torch.fleet.topology", "repro_torch.launch.train",
+            "repro_torch.roofline", "repro_torch.session.session",
+            "repro_torch.detect.executor",
+            "repro_torch.core.probes.runtime_probe"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -221,6 +228,8 @@ def test_import_scan_respects_the_repro_torch_prefix(line, bad):
 
 def test_port_sources_and_chip_smoke_import_no_jax():
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert {PORT / "diagnosis" / "engine.py", PORT / "fleet" / "topology.py",
+            PORT / "launch" / "train.py", PORT / "roofline.py"} <= set(files)
     hits = [f"{f}:{m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
