@@ -69,15 +69,41 @@ Phases, each printing one JSON line of its own:
    written inside a detection zone or on the detection worker (must be
    0). The batch mode's STEP layer must pass the main path's rate gate;
    its governor action is reported under ``unmet`` when there is none.
-7. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
+7. ``fleet_path``: `repro_torch.quickstart.run_fleet` on ``cuda`` — the
+   hierarchical fleet plane (node -> group -> fleet) from the reference
+   fleet demo's spec: 8 nodes in 2 groups of 4, each training its own
+   full-width GPT-2 (model, AdamW and CUDA graph of its own), 80 warm-up
+   steps, then 160 live steps with a tick every 16 and an op_latency fault
+   of 0.02 s on node 1 over live steps 60-100. Every group fits and scores
+   its own GMMs on the card. Counts reset just before, read just after.
+   Printed: steps/s, per-group ingest and detect seconds, ms a tick, the
+   incidents with their suspect layer and nodes, launches, runtime rows per
+   node, failed device samples, peak memory. Gates: finite losses on every
+   node; 2 groups of 4, all warmed; gmm_score, gmm_best and gmm_update
+   launched, only specialised variants, no plain call; no lost batch; no
+   runtime row in a detection zone or on the worker; an incident holding
+   node 1 over the fault's steps. Under ``unmet`` when not so: the top
+   incident's suspect layer is operator, no incident names only clean
+   nodes, no failed device sample. Then a shedding pass (4 nodes, one
+   group, 96 steps, no fault, the governor's budget below one node's events
+   a flush): the governor must shed, and the shed count on the wire must
+   equal the agents' own.
+8. ``families_path``: `repro_torch.launch.train` in-process at full width
+   in stream mode with ``--inject-faults``, once per NumPy detector family
+   (isoforest, mad, spectral), 160 steps each: steps/s, the overhead
+   against ``session_path``'s unmonitored rate, incidents against the
+   fault windows. Gates: finite loss, a detection for every warmed layer,
+   no lost batch, no GMM kernel launch and no plain GMM call.
+9. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
    K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
-8. ``profile``: torch.profiler over 5 full-width training steps, one
+10. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
 
 Every path must launch only specialised kernels (the wrappers'
-``VARIANTS``, set to 0 before each path and read after).
+``VARIANTS``, set to 0 before each path and read after). Every phase line
+carries its wall ``seconds``; the ``kernels`` line the whole run's.
 Then the ``kernels`` line (each kernel's launches on its path — the main
 path for the scoring kernels, the stream path for the EM kernels — its
 largest error against the plain version at that path's largest shape, its
@@ -85,14 +111,17 @@ device time per wrapper call, the plain version's, its bound, and beside
 them the launch alone, the eager per-call time, the kernels and memsets a
 wrapper call puts on the stream, counted with torch.profiler, which must be
 one kernel and, for the EM kernels, one memset, and the variants each path
-launched), the card's name and power limit as nvidia-smi prints them, and
-as the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
-failure exits non-zero before that line. TF32 is off for matmuls
+launched, the fleet path's among them), the card's name and power limit as
+nvidia-smi prints them, and as the last line
+``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
+non-zero before that line. TF32 is off for matmuls
 (PyTorch's default) and set off for cuDNN here, so float32 comparisons are
 float32.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -446,34 +475,61 @@ def check_em_graph_replay(ops):
     return replays
 
 
-def nodes_per_call(fn, calls=20, attempts=3):
+def _device_events(prof):
+    """Device events of a torch.profiler trace: {kernel or op name: count}."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
+def nodes_per_call(fn, calls=20, attempts=5):
     """What one wrapper call puts on the stream, counted by torch.profiler
     over ``calls`` eager calls after a warm-up: kernels, memsets and
-    copies per call. A trace that holds no device event at all is a trace
-    the profiler lost (it happens now and then over many short sessions),
-    not a count: it is taken again, up to ``attempts`` times."""
+    copies per call.
+
+    The profiler now and then loses device events over many short sessions
+    — all of a trace, or most of it (one run recorded 2 of 20 calls' kernels
+    and memsets). So every call is followed by a marker, one in-place add on
+    a one-element tensor, whose device events are learnt first from a trace
+    of the marker alone: a trace that holds fewer marker events than calls
+    lost events and is taken again, up to ``attempts`` times. The marker's
+    events are not counted as the wrapper's."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    mark = torch.zeros(1, device="cuda")
     fn()
+    mark.add_(1.0)
     torch.cuda.synchronize()
+    marker = {}
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
+            mark.add_(1.0)
+            torch.cuda.synchronize()
+        marker = _device_events(prof)
+        if marker:
+            break
+    for _ in range(attempts):
+        with profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
+                mark.add_(1.0)
             torch.cuda.synchronize()
-        counts = {"kernels": 0, "memsets": 0, "memcpys": 0}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            key = e.key.lower()
-            kind = ("memsets" if "memset" in key else
-                    "memcpys" if "memcpy" in key else "kernels")
-            counts[kind] += e.count
-        if any(counts.values()):
+        events = _device_events(prof)
+        if marker and all(events.get(k, 0) >= n * calls
+                          for k, n in marker.items()):
             break
+    counts = {"kernels": 0, "memsets": 0, "memcpys": 0}
+    for key, n in events.items():
+        n -= marker.get(key, 0) * calls
+        k = key.lower()
+        counts["memsets" if "memset" in k else
+               "memcpys" if "memcpy" in k else "kernels"] += max(n, 0)
     return {k: v / calls for k, v in counts.items()}
 
 
@@ -968,17 +1024,13 @@ def layer_rates(report, injector, steps):
     return out
 
 
-def session_phase(train, reset_counts, read_counts, read_variants):
-    """`repro_torch.launch.train` in-process at full width (GPT-2 124M,
-    bf16, batch 8, sequence 128, --inject-faults), once per mode of
-    SESSION_RUNS, with the launcher's legacy probe options (python 1-in-25,
-    device every 0.05 s). The runtime probe's row writer is wrapped for the
-    phase to count rows written inside a detection zone or on the detection
-    plane's worker thread (both must be 0). Returns the phase's line; raises
-    on a failed gate."""
+@contextlib.contextmanager
+def runtime_leaks():
+    """Count the runtime-probe rows written inside a detection zone or on
+    the detection plane's worker thread while the block runs (the probe's
+    row writer wrapped, and restored after). Yields the counts."""
     import threading
 
-    import torch
     from repro_torch.core.probes import runtime_probe
     from repro_torch.detect import in_detection_zone
 
@@ -991,9 +1043,26 @@ def session_phase(train, reset_counts, read_counts, read_variants):
             == "eacgm-detect"
         record(self, call, t0, t1)
 
-    line = {"phase": "session_path", "modes": {}}
     runtime_probe.CudaRuntimeProbe._record = counted
     try:
+        yield leaks
+    finally:
+        runtime_probe.CudaRuntimeProbe._record = record
+
+
+def session_phase(train, reset_counts, read_counts, read_variants):
+    """`repro_torch.launch.train` in-process at full width (GPT-2 124M,
+    bf16, batch 8, sequence 128, --inject-faults), once per mode of
+    SESSION_RUNS, with the launcher's legacy probe options (python 1-in-25,
+    device every 0.05 s). The runtime probe's row writer is wrapped for the
+    phase to count rows written inside a detection zone or on the detection
+    plane's worker thread (both must be 0). Returns the phase's line; raises
+    on a failed gate."""
+    import torch
+
+    t_phase = time.perf_counter()
+    line = {"phase": "session_path", "modes": {}}
+    with runtime_leaks() as leaks:
         for mode, steps in SESSION_RUNS:
             spec = {"mode": mode,
                     "probe_options": train.LEGACY_PROBE_OPTIONS}
@@ -1020,8 +1089,6 @@ def session_phase(train, reset_counts, read_counts, read_variants):
             line["modes"][mode] = res
             del out
             torch.cuda.empty_cache()
-    finally:
-        runtime_probe.CudaRuntimeProbe._record = record
     # monitoring overhead in the steady state (the set-up steps apart)
     off = line["modes"]["off"]["steady_steps_per_s"]
     line["overhead"] = {
@@ -1029,6 +1096,7 @@ def session_phase(train, reset_counts, read_counts, read_variants):
         for mode in ("batch", "stream")}
     line["runtime_rows_in_zone"] = leaks["in_zone"]
     line["runtime_rows_on_worker"] = leaks["on_worker"]
+    line["seconds"] = time.perf_counter() - t_phase
     try:
         line["unmet"] = check_session(line)
     finally:
@@ -1120,6 +1188,233 @@ def check_session(line):
         "prefix, layer anomaly rates under the governor's 0.25)"]
 
 
+# the fleet phase's second pass: the backpressure governor armed with a
+# budget below one node's events per flush (24 operator rows a step alone
+# make 384 a 16-step flush)
+SHED_TOPOLOGY = {"group_size": 4, "fan_in": 32, "max_events_per_flush": 256}
+FLEET_KERNELS = ("gmm_score", "gmm_best", "gmm_update")
+FAMILIES = ("isoforest", "mad", "spectral")
+FAMILY_STEPS = 160
+
+
+def fleet_phase(quickstart, reset_counts, read_counts, read_all_variants):
+    """`repro_torch.quickstart.run_fleet` on the card at full width: 8
+    nodes in 2 groups of 4, each node its own GPT-2 124M (bf16, batch 8,
+    sequence 128), 80 warm-up and 160 live steps, an op_latency fault of
+    0.02 s on node 1 over live steps 60-100. Counts are set to 0 just before
+    and read just after. Then a second, shorter pass (4 nodes, one group,
+    32 + 64 steps, no fault) with the backpressure governor armed
+    (`SHED_TOPOLOGY`). Prints the phase's line, then checks its gates
+    (`check_fleet`); returns the line."""
+    import torch
+
+    t_phase = time.perf_counter()
+    with runtime_leaks() as leaks:
+        reset_counts()
+        out = quickstart.run_fleet(device="cuda")
+        launches, plain = read_counts()
+        variants = read_all_variants()
+    stats = out["stats"]
+    incidents = [{"id": i.incident_id, "suspect": i.suspect_layer.value,
+                  "nodes": i.suspect_nodes, "severity": i.severity,
+                  "heaviest": max(i.layer_deficit, key=i.layer_deficit.get),
+                  "steps": [min(i.steps), max(i.steps)] if i.steps else []}
+                 for i in out["incidents"]]
+    faulty = {quickstart.FLEET_FAULT_NODE}
+    line = {
+        "phase": "fleet_path", "nodes": out["nodes"], "batch": out["batch"],
+        "seq": out["seq"], "warmup_steps": out["warmup_steps"],
+        "extra_warmup_steps": out["extra_warmup_steps"],
+        "live_steps": out["live_steps"], "fault_steps": out["fault_steps"],
+        "losses_finite": {nid: bool(all(math.isfinite(float(v)) for v in l))
+                          for nid, l in out["losses"].items()},
+        "loss_last": {nid: float(l[-1]) for nid, l in out["losses"].items()},
+        "steps_per_s": out["steps_per_s"],
+        "node_steps_per_s": out["node_steps_per_s"],
+        "register_s": out["register_s"], "warmup_s": out["warmup_s"],
+        "live_s": out["live_s"], "groups": out["groups"],
+        "warmed_layers": out["warmed_layers"],
+        "tiers": stats["tiers"],
+        "per_group_seconds": {
+            gid: {"ingest": g["ingest_seconds"], "detect": g["detect_seconds"]}
+            for gid, g in stats["groups"].items()},
+        "ticks": stats["ticks"],
+        "detect_ms_per_tick": stats["detect_ms_per_tick"],
+        "events_ingested": stats["aggregator"]["events_ingested"],
+        "window_sizes": stats["aggregator"]["window_sizes"],
+        "lost_batches": stats["aggregator"]["lost_batches"],
+        "incidents": incidents,
+        "hits": [i.incident_id for i in out["hits"]],
+        "runtime_rows_per_node": out["runtime_rows"],
+        "runtime_rows_in_zone": leaks["in_zone"],
+        "runtime_rows_on_worker": leaks["on_worker"],
+        "failed_samples": out["failed_samples"],
+        "peak_memory_gb": out["peak_memory_bytes"] / 2**30,
+        "launches": launches, "plain_calls": plain, "variants": variants}
+    events_per_flush = {nid: a["events_shipped"] / max(a["flushes"], 1)
+                        for nid, a in stats["agents"].items()}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    shed = quickstart.run_fleet(device="cuda", nodes=4, warmup_steps=32,
+                                live_steps=64, fault_s=0.0,
+                                topology=SHED_TOPOLOGY)
+    sst = shed["stats"]
+    line["shed_pass"] = {
+        "nodes": shed["nodes"], "topology": SHED_TOPOLOGY,
+        "steps": shed["warmup_steps"] + shed["extra_warmup_steps"]
+        + shed["live_steps"],
+        "first_pass_events_per_node_flush": events_per_flush,
+        "events_shed_agents": sst["events_shed"],
+        "events_shed_wire": sst["aggregator"]["events_shed_at_source"],
+        "events_ingested": sst["aggregator"]["events_ingested"],
+        "lost_batches": sst["aggregator"]["lost_batches"],
+        "budgets": {nid: a["governor_budget"]
+                    for nid, a in sst["agents"].items()},
+        "losses_finite": bool(all(math.isfinite(float(v))
+                                  for l in shed["losses"].values()
+                                  for v in l)),
+        "steps_per_s": shed["steps_per_s"]}
+    del shed
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["unmet"] = [
+        *([] if incidents and incidents[0]["suspect"] == "operator" else
+          [f"the top incident's suspect layer is operator: "
+           f"{incidents[0]['suspect'] if incidents else None}"]),
+        *([f"an incident names only clean nodes: {i}" for i in incidents
+           if not faulty & set(i["nodes"])]),
+        *([f"device samples failed: {line['failed_samples']}"]
+          if any(line["failed_samples"].values()) else [])]
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    check_fleet(line)
+    return line
+
+
+def check_fleet(line):
+    """The fleet phase's gates: finite losses on every node; 2 groups of 4,
+    all warmed; the group detectors launched gmm_score, gmm_best and
+    gmm_update, only specialised variants, no plain call; no lost batch; no
+    runtime row in a detection zone or on the worker; an incident holding
+    node 1 over the fault's steps. The shedding pass: finite losses, no lost
+    batch, the governor shed, and the wire's shed count equals the agents'.
+    What the reference's design does not guarantee (the top incident's
+    suspect layer, no incident on clean nodes only, device samples on a host
+    with 8 samplers) is listed under ``unmet``, not enforced."""
+    if not all(line["losses_finite"].values()):
+        raise SmokeFailure(f"fleet_path: non-finite loss: "
+                           f"{line['losses_finite']}")
+    groups = line["groups"]
+    if sorted(len(g["nodes"]) for g in groups.values()) != [4, 4] or not all(
+            g["warmed"] for g in groups.values()):
+        raise SmokeFailure(f"fleet_path: not 2 warmed groups of 4: {groups}")
+    if not all(line["launches"][k] for k in FLEET_KERNELS):
+        raise SmokeFailure(f"fleet_path: a kernel was not launched: "
+                           f"{line['launches']}")
+    if any(v["general"] for v in line["variants"].values()):
+        raise SmokeFailure(f"fleet_path launched a general kernel: "
+                           f"{line['variants']}")
+    if any(line["plain_calls"].values()):
+        raise SmokeFailure(f"fleet_path: plain versions ran: "
+                           f"{line['plain_calls']}")
+    if line["lost_batches"]:
+        raise SmokeFailure(f"fleet_path: {line['lost_batches']} lost batches")
+    if line["runtime_rows_in_zone"] or line["runtime_rows_on_worker"]:
+        raise SmokeFailure(f"fleet_path: runtime-probe rows inside a "
+                           f"detection zone: {line['runtime_rows_in_zone']}, "
+                           f"on the worker: {line['runtime_rows_on_worker']}")
+    if not line["hits"]:
+        raise SmokeFailure(f"fleet_path: no incident holds node 1 over steps "
+                           f"{line['fault_steps']}: {line['incidents']}")
+    sp = line["shed_pass"]
+    if not sp["losses_finite"] or sp["lost_batches"]:
+        raise SmokeFailure(f"fleet_path shedding pass: {sp}")
+    if not (sp["events_shed_agents"] > 0
+            and sp["events_shed_wire"] == sp["events_shed_agents"]):
+        raise SmokeFailure(f"fleet_path shedding pass: shed on the wire "
+                           f"{sp['events_shed_wire']}, by the agents "
+                           f"{sp['events_shed_agents']}")
+
+
+def families_phase(train, reset_counts, read_counts, off_steady):
+    """`repro_torch.launch.train` in-process at full width in stream mode
+    with ``--inject-faults`` and the session_path's probe options, once per
+    NumPy detector family (isoforest, mad, spectral), FAMILY_STEPS steps
+    each. Per family: steps/s, the steady rate's overhead against the
+    session_path's unmonitored steady rate (``off_steady``), the incidents
+    against the injected fault windows (with the launcher's seed-0 schedule
+    over 160 steps: hw_contention, which perturbs the device layer, and
+    net_latency, which perturbs nothing on one card), the warmed layers and
+    those the last tick detected on, GMM launches and plain calls (both
+    must be 0). Prints the line, then checks its gates:
+    finite loss, a detection for every warmed layer, no lost batch, no GMM
+    kernel and no plain GMM call."""
+    import torch
+
+    from repro_torch.stream import match_incidents
+
+    t_phase = time.perf_counter()
+    line = {"phase": "families_path", "steps": FAMILY_STEPS, "families": {}}
+    for family in FAMILIES:
+        spec = {"mode": "stream", "detector": {"backend": family},
+                "probe_options": train.LEGACY_PROBE_OPTIONS}
+        args = train.parser().parse_args(
+            ["--arch", "gpt2", "--device", "cuda", "--steps",
+             str(FAMILY_STEPS), "--batch", "8", "--seq", "128",
+             "--inject-faults", "--log-every", "0",
+             "--monitor-spec", json.dumps(spec)])
+        t0 = time.perf_counter()
+        reset_counts()
+        out = train.train(args)
+        launches, plain = read_counts()
+        report, session = out["report"], out["session"]
+        mon = session.detector.monitor
+        injector = out["injector"]
+        windows = injector.windows()
+        m = match_incidents(report.incidents, windows,
+                            grace_steps=session.spec.detector.flush_every)
+        steady = steady_steps_per_s(out["step_end_s"])
+        line["families"][family] = {
+            "losses_finite": all(math.isfinite(v) for v in out["losses"]),
+            "loss_last": out["losses"][-1],
+            "steps_per_s": out["steps_per_s"], "steady_steps_per_s": steady,
+            "overhead_vs_off": 1.0 - steady / off_steady,
+            "warmed": sorted(l.value for l in mon.detector.states),
+            "detected": sorted(l.value for l in mon.last_detections),
+            "lost_batches": mon.stats()["aggregator"]["lost_batches"],
+            "faults": [f.to_json() for f in injector.faults],
+            "windows": windows, "recall": m.recall,
+            "precision": m.precision, "window_hits": m.window_hits,
+            "spurious": m.spurious,
+            "incidents": [
+                {"suspect": i.suspect_layer.value, "nodes": i.suspect_nodes,
+                 "severity": i.severity,
+                 "steps": [min(i.steps), max(i.steps)] if i.steps else []}
+                for i in sorted(report.incidents, key=lambda i: -i.severity)],
+            "gmm_launches": launches, "plain_calls": plain,
+            "seconds": time.perf_counter() - t0}
+        del out, report, session, mon
+        gc.collect()
+        torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    for family, r in line["families"].items():
+        if not r["losses_finite"]:
+            raise SmokeFailure(f"families_path {family}: non-finite loss")
+        if not r["warmed"] or r["detected"] != r["warmed"]:
+            raise SmokeFailure(f"families_path {family}: warmed layers "
+                               f"{r['warmed']}, detected {r['detected']}")
+        if r["lost_batches"]:
+            raise SmokeFailure(f"families_path {family}: "
+                               f"{r['lost_batches']} lost batches")
+        if any(r["gmm_launches"].values()) or any(r["plain_calls"].values()):
+            raise SmokeFailure(f"families_path {family}: GMM kernels "
+                               f"{r['gmm_launches']} or plain calls "
+                               f"{r['plain_calls']} ran")
+    return line
+
+
 def build_phase(build, kmod, card):
     """Phase 1: every CUDA source built at once; fails unless ptxas
     reported every specialised kernel (both dtypes; score, best and EM for
@@ -1156,6 +1451,7 @@ def kernel_check_phase(ops, kmod, smod):
     layout and NaN; both sides of the specialised / general boundary."""
     import torch
 
+    t_phase = time.perf_counter()
     worst = {"gmm_score": 0.0, "gmm_best": 0.0}
     cases = 0
     for dtype, shapes in ((torch.float32, SHAPES), (torch.bfloat16,
@@ -1180,12 +1476,14 @@ def kernel_check_phase(ops, kmod, smod):
           "max_abs_err": worst,
           "em_max_rel_err": em_rel, "em_bitwise_repeatable": True,
           "transposed_and_nan_u_cases": layout_cases,
-          "boundary": boundary, "em_graph_replays_bitwise": replays})
+          "boundary": boundary, "em_graph_replays_bitwise": replays,
+          "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
     import torch
 
+    t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no card")
     src = os.path.join(ROOT, "src")
@@ -1206,9 +1504,11 @@ def main() -> int:
     kernel_check_phase(ops, kmod, smod)
 
     # the train step's CUDA graph against the eager step
+    t_phase = time.perf_counter()
     rel_loss, rel_grad = check_graphed_step()
     emit({"phase": "graph_check", "max_rel_loss_err": rel_loss,
-          "max_rel_grad_err": rel_grad})
+          "max_rel_grad_err": rel_grad,
+          "seconds": time.perf_counter() - t_phase})
 
     def reset_counts():
         for counts in (kmod.LAUNCHES, smod.LAUNCHES, ref.CALLS):
@@ -1221,15 +1521,19 @@ def main() -> int:
     def read_counts():
         return {**kmod.LAUNCHES, **smod.LAUNCHES}, dict(ref.CALLS)
 
+    def read_all_variants():
+        return {k: dict(v) for counts in (kmod.VARIANTS, smod.VARIANTS)
+                for k, v in counts.items()}
+
     def read_variants(path):
-        variants = {k: dict(v) for counts in (kmod.VARIANTS, smod.VARIANTS)
-                    for k, v in counts.items()}
+        variants = read_all_variants()
         if any(v["general"] for v in variants.values()):
             raise SmokeFailure(f"{path} launched a general kernel: "
                                f"{variants}")
         return variants
 
     # 3. the main path on the card
+    t_phase = time.perf_counter()
     reset_counts()
     out = quickstart.run(device="cuda", peak_w=power_limit_w)
     launches, plain_calls = read_counts()
@@ -1247,7 +1551,8 @@ def main() -> int:
           "rows_per_layer": out["rows_per_layer"],
           "runtime_probe": out["runtime_probe"], "launches": launches,
           "variants": variants, "plain_calls": plain_calls,
-          "failed_samples": out["failed_samples"]})
+          "failed_samples": out["failed_samples"],
+          "seconds": time.perf_counter() - t_phase})
     if not all(math.isfinite(float(v)) for v in losses):
         raise SmokeFailure("non-finite training loss")
     if Layer.STEP not in out["results"]:
@@ -1273,19 +1578,30 @@ def main() -> int:
     del out
 
     # 4. the stream path on the card
+    t_phase = time.perf_counter()
     reset_counts()
     st = quickstart.run_stream(device="cuda", peak_w=power_limit_w)
     s_launches, s_plain = read_counts()
     s_variants = read_variants("stream_path")
-    emit({**stream_line(st, s_launches, s_plain), "variants": s_variants})
+    emit({**stream_line(st, s_launches, s_plain), "variants": s_variants,
+          "seconds": time.perf_counter() - t_phase})
     check_stream(st, s_launches, s_plain)
     del st
 
     # 5. the training entry point with the session, three modes
     from repro_torch.launch import train
-    session_phase(train, reset_counts, read_counts, read_variants)
+    session = session_phase(train, reset_counts, read_counts, read_variants)
 
-    # 6. times at each path's largest shape and at scale
+    # 6. the hierarchical fleet plane: 8 full-width nodes in 2 groups
+    fleet = fleet_phase(quickstart, reset_counts, read_counts,
+                        read_all_variants)
+
+    # 7. the NumPy detector families through the launcher's stream session
+    families_phase(train, reset_counts, read_counts,
+                   session["modes"]["off"]["steady_steps_per_s"])
+
+    # 8. times at each path's largest shape and at scale
+    t_phase = time.perf_counter()
     N, D, K = shape
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
     errs.update(check_em_case(ops, *STREAM_FIT_SHAPE, torch.float32,
@@ -1301,7 +1617,8 @@ def main() -> int:
     scaling.update({f"N={n} D={d} K={k}": measure_em(ops, smod, n, d, k,
                                                      reps=50)
                     for n, d, k in EM_SCALING})
-    emit({"phase": "kernel_scaling", "card": card, "shapes": scaling})
+    emit({"phase": "kernel_scaling", "card": card, "shapes": scaling,
+          "seconds": time.perf_counter() - t_phase})
     for name, res in at_path.items():
         want = {"kernels": 1.0, "memsets": float(name in ("gmm_stats",
                                                           "gmm_update")),
@@ -1310,7 +1627,9 @@ def main() -> int:
             raise SmokeFailure(f"{name}: a wrapper call put {res['nodes']} "
                                f"on the stream, not {want}")
 
-    emit({"phase": "profile", "card": card, **profile_phase(N, D, K)})
+    t_phase = time.perf_counter()
+    emit({"phase": "profile", "card": card, **profile_phase(N, D, K),
+          "seconds": time.perf_counter() - t_phase})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1323,12 +1642,15 @@ def main() -> int:
          "host_ms": at_path[name]["host_ms"], "shape": list(shapes[name]),
          "path": "main_path" if paths[name] is launches else "stream_path",
          "launches_by_path": {"main_path": launches[name],
-                              "stream_path": s_launches[name]},
+                              "stream_path": s_launches[name],
+                              "fleet_path": fleet["launches"][name]},
          "kernels_per_call": at_path[name]["nodes"]["kernels"],
          "memsets_per_call": at_path[name]["nodes"]["memsets"],
          "variants_by_path": {"main_path": variants[name],
-                              "stream_path": s_variants[name]}}
-        for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")]})
+                              "stream_path": s_variants[name],
+                              "fleet_path": fleet["variants"][name]}}
+        for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")],
+        "smoke_seconds": time.perf_counter() - t_smoke})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

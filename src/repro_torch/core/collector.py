@@ -96,18 +96,32 @@ class Collector:
             self.detach()
 
     # -- observation hooks ------------------------------------------------------
-    def observe_step_fn(self, fn: Callable, *,
+    def observe_step_fn(self, fn: Callable, *, lowered=None,
                         sample_args: Optional[tuple] = None,
                         flops_per_step: float = 0.0,
                         mem_gb: float = 0.0) -> Callable:
         """Wrap a built step callable and read its operator stream off one
         meta-tensor run on ``sample_args``. Non-intrusive: operates only on
-        objects the launcher already holds, and leaves them unchanged. (The
-        reference's ``lowered=`` reads a collective schedule off compiled
-        HLO; a one-card torch step has neither.)"""
+        objects the launcher already holds, and leaves them unchanged.
+
+        ``lowered`` is a collective schedule in HLO text, or anything whose
+        ``as_text()`` gives one (the reference passes a lowered JAX step):
+        the collective probe reads its schedule off it, as the reference's
+        does. A one-card torch step has no such artifact; a caller that
+        models a sharded step passes the text itself."""
         step = self.step_probe
         step.flops_per_step = flops_per_step
         step.mem_gb_per_step = mem_gb
+        if lowered is not None:
+            try:
+                hlo = lowered if isinstance(lowered, str) else \
+                    lowered.as_text()
+                self._by_name["collective"].register_compiled(hlo)
+            except Exception as e:
+                warnings.warn(
+                    f"probe 'collective': register_compiled failed ({e!r}); "
+                    "collective-layer events will be missing", RuntimeWarning,
+                    stacklevel=2)
         if sample_args is not None and "operator" in self._by_name:
             try:
                 self._by_name["operator"].register_fn(fn, *sample_args)

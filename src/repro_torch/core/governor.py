@@ -3,15 +3,19 @@ eACGM). At 1000+ node scale the monitor's job is not just flagging — it must
 recommend mitigations: straggler drain, checkpoint-restart, comm re-route.
 
 Policies are a **registry keyed by fault kind** (the chaos taxonomy of
-`repro_torch.core.chaos.ALL_KINDS`), not by layer: a diagnosis engine
-turns ranked incidents into a blamed fault kind, and the governor turns that
-kind into the recommended `Action`. Third-party policies register with
-`register_policy` and become addressable the moment a diagnosis blames their
-kind. (The diagnosis engine and the session that call `act` are not ported
-yet; in the JAX package they are `repro.diagnosis` and `repro.session`.)
+`repro_torch.core.chaos.ALL_KINDS`), not by layer: the diagnosis engine
+(`repro_torch.diagnosis`) turns ranked incidents into a blamed fault kind,
+and the governor turns that kind into the recommended `Action`. Third-party
+policies register with `register_policy` and become addressable the moment
+a diagnosis blames their kind.
 
 Consumers:
 
+* `repro_torch.session.Session.on_step` runs `Governor.decide` on each
+  detection sweep and `Governor.act` on each finalised diagnosis; the
+  launcher (`repro_torch.launch.train --monitor-spec ...`) prints the
+  actions. It does not yet honour ``checkpoint_now``: the checkpoint module
+  (the JAX package's `repro/train/checkpoint.py`) is not ported.
 * `repro_torch.quickstart` runs `Governor.decide` on the detection results
   of a monitored training run and prints the actions.
 * `docs/runbook.md` documents one operator playbook per fault kind; each

@@ -3,8 +3,9 @@ changes, inject labelled faults, detect them with per-layer GMMs fitted on
 the card, and let the governor act. The port's counterpart of
 ``examples/quickstart.py`` and the main path of the port.
 
-Run:  PYTHONPATH=src python -m repro_torch.quickstart [--mode batch|stream]
-          [--reduced] [--device cpu|cuda] [--steps N]
+Run:  PYTHONPATH=src python -m repro_torch.quickstart
+          [--mode batch|stream|fleet] [--reduced] [--device cpu|cuda]
+          [--steps N]
 
 The defaults are full-width GPT-2 (124M: 12 layers, d_model 768, 12 heads,
 vocab 50257 padded to 50304) in bf16, batch 8, sequence 128, on ``cuda``.
@@ -30,25 +31,35 @@ cadence while the job trains, and groups the flags into incidents, which are
 matched against the ``latency_spike`` scenario's fault windows — all four
 GMM kernels on the card (``gmm_update``, ``gmm_stats``, ``gmm_best``,
 ``gmm_score``).
+
+``--mode fleet`` (`run_fleet`) is the port's counterpart of
+``examples/fleet_demo.py``: a `Session` built from the reference's
+``examples/fleet_spec.json`` values drives 8 nodes in groups of 4 through
+the hierarchical fleet plane (node -> group -> fleet). Each node trains its
+own GPT-2 (model, AdamW and CUDA graph of its own); node 1 suffers an
+operator-latency fault mid-run. Every group fits and scores its own GMMs on
+the card, and the fleet tier merges the groups' flags into one incident
+stream with per-node attribution.
 """
 from __future__ import annotations
 
 import argparse
 import math
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.config import TrainConfig, get_arch, reduced
 from repro_torch.core import Collector, FaultInjector, FullStackMonitor, Governor
-from repro_torch.core.chaos import get_scenario
+from repro_torch.core.chaos import Fault, get_scenario
 from repro_torch.core.events import LAYER_CODE, Layer, select_columns
 from repro_torch.core.probes.device_probe import H100_POWER_LIMIT_W
 from repro_torch.data import SyntheticLMData
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Runtime, batch_to_device
+from repro_torch.session import MonitorSpec, Session
 from repro_torch.stream import (OnlineGMMDetector, StreamMonitor,
                                 match_incidents)
 from repro_torch.train.step import (init_train_state, make_optimizer_for,
@@ -58,6 +69,13 @@ DEVICE_INTERVAL = 0.01  # device probe polling, seconds
 SETUP_STEPS = 3  # stream mode: steps run before the collector attaches
 FLUSH_EVERY = 20  # stream mode: steps between detection ticks
 N_COMPONENTS = 3  # GMM components of both detectors (fewer on small layers)
+# fleet mode: examples/fleet_demo.py's shape and schedule
+FLEET_NODES = 8
+FLEET_WARMUP_STEPS = 80
+FLEET_LIVE_STEPS = 160
+FLEET_FAULT_NODE = 1
+FLEET_FAULT = (60, 100)  # live-phase steps of the injected fault
+FLEET_OP_LATENCY_S = 0.02
 
 
 def probe_counts(probe) -> Dict[str, int]:
@@ -66,10 +84,11 @@ def probe_counts(probe) -> Dict[str, int]:
     return {"rows": probe.emitted, "dropped_in_zone": probe.dropped_in_zone}
 
 
-def _workload(reduced_model: bool, dev, steps: int):
+def _workload(reduced_model: bool, dev, steps: int, seed: int = 0):
     """The monitored job: GPT-2 (full width in bf16, batch 8, sequence 128;
     or the reduced model in float32, batch 4, sequence 32), AdamW, its
-    state and its (CUDA-graphed on the card) train step."""
+    state and its (CUDA-graphed on the card) train step; weights and data
+    from ``seed``."""
     cfg = get_arch("gpt2")
     if reduced_model:
         cfg = reduced(cfg)
@@ -78,8 +97,8 @@ def _workload(reduced_model: bool, dev, steps: int):
                  else torch.bfloat16)
     opt = make_optimizer_for(TrainConfig(learning_rate=1e-3,
                                          total_steps=steps, warmup_steps=5))
-    data = SyntheticLMData(cfg, seq_len=seq, global_batch=batch, seed=0)
-    state = init_train_state(cfg, opt, seed=0, device=dev)
+    data = SyntheticLMData(cfg, seq_len=seq, global_batch=batch, seed=seed)
+    state = init_train_state(cfg, opt, seed=seed, device=dev)
     return batch, seq, data, state, make_train_step(cfg, rt, opt)
 
 
@@ -272,17 +291,183 @@ def run_stream(*, reduced_model: bool = False, device: DeviceLike = None,
     }
 
 
+def fleet_spec(report_path: str = "results/fleet_report.json",
+               topology: Optional[Dict[str, Any]] = None) -> MonitorSpec:
+    """The reference's ``examples/fleet_spec.json``: stream mode; probes
+    xla, operator, collective, device (every 0.01 s) and step; K=3,
+    contamination 0.02, min_events 64, a tick every 16 steps, a 120 s
+    horizon, incident gap and close-after 0.5 s, min_flags 6, seed 0, the
+    inline executor; no governor; 4 nodes a group under a fan-in of 32. Its
+    ``prometheus`` and ``board`` sinks wait for the obs slice of the port,
+    so only the ``report`` sink is kept. ``topology`` replaces the topology
+    section (e.g. to arm the backpressure governor)."""
+    return MonitorSpec.from_dict({
+        "mode": "stream",
+        "probes": ["xla", "operator", "collective", "device", "step"],
+        "probe_options": {"device": {"interval": 0.01}},
+        "detector": {"backend": "gmm", "n_components": 3,
+                     "contamination": 0.02, "min_events": 64,
+                     "flush_every": 16, "horizon_s": 120.0,
+                     "incident_gap_s": 0.5, "incident_close_after_s": 0.5,
+                     "min_flags": 6, "seed": 0, "executor": "inline"},
+        "sinks": [{"kind": "report", "path": report_path}],
+        "governor": False,
+        "topology": topology or {"group_size": 4, "fan_in": 32},
+        "seed": 0})
+
+
+class _FleetNode:
+    """One simulated worker: a session node with its own GPT-2, AdamW state,
+    data and (on the card) CUDA-graphed step."""
+
+    def __init__(self, session: Session, node_id: int, reduced_model: bool,
+                 dev, steps: int):
+        self.node_id = node_id
+        self.handle = session.node(node_id)
+        (self.batch, self.seq, self.data, self.state,
+         self.step_fn) = _workload(reduced_model, dev, steps, seed=node_id)
+        self.fn = self.step_fn
+        self.losses = []
+
+    def step(self, s: int, dev) -> None:
+        self.state, metrics = self.fn(
+            self.state, batch_to_device(self.data.batch(s), dev))
+        self.losses.append(metrics["loss"])
+
+
+def run_fleet(*, reduced_model: bool = False, device: DeviceLike = None,
+              nodes: int = FLEET_NODES,
+              warmup_steps: int = FLEET_WARMUP_STEPS,
+              live_steps: int = FLEET_LIVE_STEPS,
+              fault_s: float = FLEET_OP_LATENCY_S,
+              topology: Optional[Dict[str, Any]] = None,
+              report_path: str = "results/fleet_report.json",
+              log_every: int = 0) -> Dict[str, Any]:
+    """The fleet demo on the port (`examples/fleet_demo.py`): ``nodes``
+    workers in groups of 4 (`fleet_spec`), each training its own GPT-2,
+    monitored through one `Session` with a hierarchical topology. The
+    step's first ``SETUP_STEPS`` calls run on every node before the
+    collectors attach (see `run_stream`). ``warmup_steps`` clean steps on
+    every node, then ``session.warmup()`` fits every group's baselines; the
+    run waits (a tick's worth of clean steps at a time, at most
+    ``warmup_steps`` more) until every group has warmed. Then
+    ``live_steps`` steps, with ``session.tick()`` every ``flush_every``
+    steps and an op_latency fault of ``fault_s`` seconds on node 1 over the
+    live steps ``FLEET_FAULT`` (``fault_s=0``: no fault). Returns the
+    losses per node, steps/s of the live phase (one step on every node a
+    fleet step), the groups and their members, the incidents and those
+    that hold node 1 over the fault's steps, the monitor's stats (tier
+    seconds, shed and lost accounting), runtime rows and failed device
+    samples per node, and the card's peak memory."""
+    dev = resolve_device(device)
+    spec = fleet_spec(report_path, topology)
+    flush_every = spec.detector.flush_every
+    steps = SETUP_STEPS + 2 * warmup_steps + live_steps
+    session = Session(spec, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    fleet = {nid: _FleetNode(session, nid, reduced_model, dev, steps)
+             for nid in range(nodes)}
+    for node in fleet.values():
+        for s in range(SETUP_STEPS):
+            node.state, _ = node.step_fn(
+                node.state, batch_to_device(node.data.batch(s), dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    lo, hi = FLEET_FAULT
+    injector = FaultInjector([Fault("op_latency", lo, hi, fault_s)]
+                             if fault_s else [])
+    faulty = fleet.get(FLEET_FAULT_NODE)
+    mon = session.detector.monitor
+    step = 0
+
+    def fleet_step(live_s: Optional[int] = None) -> None:
+        nonlocal step
+        for node in fleet.values():
+            if node is faulty and live_s is not None:
+                injector.apply(live_s, node.handle.collector)
+            node.step(step, dev)
+        if log_every and step % log_every == 0:
+            print(f"step {step:4d} loss "
+                  f"{float(fleet[0].losses[-1]):.4f}", flush=True)
+        step += 1
+
+    with session.monitoring():
+        t_register = time.perf_counter()
+        for node in fleet.values():
+            node.fn = node.handle.observe_step_fn(
+                node.step_fn, sample_args=(node.state, node.data.batch(0)))
+        register_s = time.perf_counter() - t_register
+        t_warm = time.perf_counter()
+        for _ in range(warmup_steps):
+            fleet_step()
+        warmed = [layer.value for layer in session.warmup()]
+        extra = 0
+        while (not all(g.warmed for g in mon.groups.values())
+               and extra < warmup_steps):
+            for _ in range(flush_every):
+                fleet_step()
+            extra += flush_every
+            warmed += [layer.value for layer in session.warmup()]
+        warm_s = time.perf_counter() - t_warm
+        first_live = step
+        t_live = time.perf_counter()
+        for s in range(live_steps):
+            fleet_step(live_s=s)
+            if (s + 1) % flush_every == 0:
+                session.tick()
+        if faulty is not None:
+            injector.clear(faulty.handle.collector)
+        live_s = time.perf_counter() - t_live
+        time.sleep(3 * DEVICE_INTERVAL)  # the last device samples land
+    report = session.result()
+    stats = mon.stats()
+    fault_steps = set(range(first_live + lo, first_live + hi))
+    hits = [i for i in report.incidents
+            if FLEET_FAULT_NODE in i.suspect_nodes
+            and fault_steps & set(i.steps)]
+    losses = {nid: torch.stack(node.losses).float().cpu().numpy()
+              for nid, node in fleet.items()}
+    collectors = {nid: node.handle.collector for nid, node in fleet.items()}
+    return {
+        "device": str(dev), "nodes": nodes, "batch": fleet[0].batch,
+        "seq": fleet[0].seq, "losses": losses,
+        "warmup_steps": warmup_steps, "extra_warmup_steps": extra,
+        "live_steps": live_steps, "first_live_step": first_live,
+        "fault_steps": (first_live + lo, first_live + hi) if fault_s
+        else None,
+        "register_s": register_s, "warmup_s": warm_s, "live_s": live_s,
+        "steps_per_s": live_steps / live_s,
+        "node_steps_per_s": nodes * live_steps / live_s,
+        "warmed_layers": sorted(set(warmed)),
+        "groups": {gid: {"nodes": g.nodes(), "warmed": g.warmed}
+                   for gid, g in sorted(mon.groups.items())},
+        "incidents": sorted(report.incidents, key=lambda i: -i.severity),
+        "hits": hits, "report": report, "stats": stats,
+        "runtime_rows": {nid: probe_counts(c["xla"])
+                         for nid, c in collectors.items()},
+        "failed_samples": {nid: c["device"].failed_samples
+                           for nid, c in collectors.items()},
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", default="batch", choices=("batch", "stream"))
+    ap.add_argument("--mode", default="batch",
+                    choices=("batch", "stream", "fleet"))
     ap.add_argument("--reduced", action="store_true",
                     help="2-layer d_model-64 GPT-2 in float32 (CPU-sized)")
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--steps", type=int, default=None,
-                    help="training steps (default 120 batch, 240 stream)")
+                    help="training steps (default 120 batch, 240 stream; "
+                         "fleet: live steps, default 160)")
     args = ap.parse_args(argv)
     if args.mode == "stream":
         return _main_stream(args)
+    if args.mode == "fleet":
+        return _main_fleet(args)
     out = run(reduced_model=args.reduced, device=args.device,
               steps=args.steps or 120, log_every=30)
     print(f"\ntrained {out['steps']} steps at {out['steps_per_s']:.2f} "
@@ -314,6 +499,33 @@ def _main_stream(args) -> int:
     print(f"fault windows {out['windows']}: recall {m.recall:.2f}, "
           f"precision {m.precision:.2f}")
     return 0 if math.isfinite(float(out["losses"][-1])) else 1
+
+
+def _main_fleet(args) -> int:
+    out = run_fleet(reduced_model=args.reduced, device=args.device,
+                    live_steps=args.steps or FLEET_LIVE_STEPS, log_every=40)
+    stats = out["stats"]
+    print(f"\n{out['nodes']} nodes in {len(out['groups'])} group(s): "
+          f"{out['steps_per_s']:.2f} fleet steps/s "
+          f"({out['node_steps_per_s']:.1f} node steps/s) on {out['device']}; "
+          f"{stats['ticks']} ticks at {stats['detect_ms_per_tick']:.1f} "
+          f"ms/tick; {stats['aggregator']['lost_batches']} lost batches")
+    for gid, g in out["groups"].items():
+        gs = stats["groups"][gid]
+        print(f"  group {gid}: nodes {g['nodes']}, warmed {g['warmed']}, "
+              f"ingest {gs['ingest_seconds']:.3f} s, detect "
+              f"{gs['detect_seconds']:.3f} s")
+    for inc in out["incidents"]:
+        print(inc.render())
+    print(f"{len(out['hits'])} incident(s) hold node {FLEET_FAULT_NODE} over "
+          f"the fault's steps {out['fault_steps']}")
+    rows = {nid: r["rows"] for nid, r in out["runtime_rows"].items()}
+    print(f"runtime rows per node {rows}; failed device samples "
+          f"{out['failed_samples']}")
+    if out["peak_memory_bytes"] is not None:
+        print(f"peak device memory {out['peak_memory_bytes'] / 2**30:.2f} GiB")
+    finite = all(np.isfinite(v).all() for v in out["losses"].values())
+    return 0 if finite and out["hits"] else 1
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Detector protocol + adapters over the existing GMM detectors (port of
-`repro/session/detectors.py:1-257`).
+`repro/session/detectors.py`).
 
 A session detector backend exposes one lifecycle regardless of mode:
 
@@ -15,11 +15,19 @@ session registry, so a spec can swap detector families without the drivers
 knowing.
 
 Both take the ``device`` their GMMs fit and score on (default ``cuda``: the
-four GMM kernels). The reference's other families ("isoforest", "mad",
-"spectral", `repro/session/detectors.py:260-375`) come with the port of
-`repro/detect/families.py`, and its hierarchical topology with the fleet
-slice; both raise here until then. Both backends keep the reference's async
-snapshot/detect_snapshot/admit trio.
+four GMM kernels); under a hierarchical topology (``spec.topology``) the
+stream backend builds a `HierarchicalMonitor` whose group detectors run on
+that device too.
+
+Beside the GMM, the bake-off families register under "isoforest"
+(extended isolation ensemble with warm-started tree reuse), "mad" (robust
+per-feature quantile/MAD floor), and "spectral" (PCA/spectral residual
+with incremental subspace updates) — `BatchModelBackend` /
+`OnlineModelBackend` specialised per family. They are NumPy on the host, as
+in the reference, and accept ``device`` only for a uniform constructor. All
+share one score convention (higher = more normal;
+`repro_torch.detect.families`), so every backend is interchangeable behind
+the protocol and the async snapshot/detect_snapshot/admit trio.
 """
 from __future__ import annotations
 
@@ -133,35 +141,68 @@ class OnlineGMMBackend:
 
     def _window_detector(self, contamination: float):
         """The per-window detector: an `OnlineGMMDetector` on the backend's
-        device. Family backends override this in the reference — everything
-        else (async trio, incident engine, wire pipeline) is inherited."""
+        device. Family backends (`OnlineModelBackend`) override this —
+        everything else (async trio, incident engine, wire pipeline) is
+        inherited."""
         return OnlineGMMDetector(n_components=self.spec.n_components,
                                  contamination=contamination,
                                  min_events=self.spec.min_events,
                                  seed=self.spec.seed, device=self.device)
 
     def configure_topology(self, topology) -> None:
-        """The reference swaps the flat `StreamMonitor` for a hierarchical
-        monitor here; that comes with the fleet slice of the port."""
+        """Swap the flat `StreamMonitor` for a `HierarchicalMonitor` built
+        from a `TopologySpec` (the spec's ``topology`` section), its group
+        detectors on the backend's device. Must run before any node
+        registers — the window/detector state is rebuilt."""
         if topology is None:
             return
-        raise NotImplementedError(
-            "spec.topology is not ported yet: the hierarchical monitor "
-            "comes with the fleet/ slice of the port (repro/fleet/plane.py, "
-            "group.py, governor.py)")
+        if self.monitor.agents:
+            raise RuntimeError("configure_topology must run before nodes "
+                               "register")
+        from repro_torch.fleet import HierarchicalMonitor
+        contamination = (STREAM_CONTAMINATION
+                         if self.spec.contamination is None
+                         else self.spec.contamination)
+        self.monitor = HierarchicalMonitor(
+            topology,
+            n_components=self.spec.n_components,
+            contamination=contamination,
+            horizon_s=self.spec.horizon_s,
+            capacity_per_layer=self.spec.capacity_per_layer,
+            min_events=self.spec.min_events,
+            incident_gap_s=self.spec.incident_gap_s,
+            incident_close_after_s=self.spec.incident_close_after_s,
+            min_flags=self.spec.min_flags,
+            seed=self.spec.seed,
+            drift_tol=self.spec.drift_tol,
+            track=self.spec.warm_start,
+            incremental=self.spec.incremental,
+            device=self.device)
+
+    @property
+    def hierarchical(self) -> bool:
+        return hasattr(self.monitor, "groups")
 
     @property
     def fitted(self) -> bool:
-        return self.monitor.detector.warmed
+        return (self.monitor.warmed if self.hierarchical
+                else self.monitor.detector.warmed)
 
     @property
     def aggregator(self):
-        """The fleet's per-layer sliding windows (`FleetAggregator`)."""
+        """The fleet's per-layer sliding windows (`FleetAggregator`, or the
+        `FleetView` facade under a hierarchical topology)."""
         return self.monitor.aggregator
 
     @property
     def window_detector(self):
-        """The raw per-window detector (`OnlineGMMDetector`)."""
+        """The raw per-window detector (OnlineGMMDetector); under a
+        hierarchical topology there is one per group — see
+        ``monitor.group_detectors``."""
+        if self.hierarchical:
+            raise AttributeError(
+                "hierarchical monitor has per-group detectors; use "
+                "monitor.group_detectors")
         return self.monitor.detector
 
     def register_node(self, node_id: int, collector: Collector,
@@ -224,3 +265,132 @@ class OnlineGMMBackend:
     @property
     def incidents(self) -> List[Incident]:
         return self.monitor.incidents
+
+
+# -- pluggable model families (the detector bake-off) -------------------------
+# Each family registers a batch and a stream backend behind the same names
+# the GMM uses, so a spec swaps families with one string
+# (``DetectorSpec(backend="mad")``). Scores follow the shared convention
+# (higher = more normal; see repro_torch.detect.families), so thresholding,
+# incident formation, and metrics need zero per-family code.
+
+class BatchModelBackend:
+    """`repro_torch.detect.families.ModelStackMonitor` behind the Detector
+    protocol — the batch lifecycle of `BatchGMMBackend` for any score-model
+    family (full refit per ``fit`` call on the clean prefix; ``update``
+    scores with the current models)."""
+
+    family = ""  # subclasses set a repro_torch.detect.families name
+
+    def __init__(self, spec: Optional[DetectorSpec] = None,
+                 device: DeviceLike = None):
+        self.spec = spec or DetectorSpec()
+        self.device = resolve_device(device)
+        self._monitor = None
+        self._last: Dict[Layer, DetectionResult] = {}
+
+    def _factory(self):
+        from repro_torch.detect.families import model_factory
+
+        return model_factory(self.family, seed=self.spec.seed,
+                             n_trees=self.spec.n_trees,
+                             refresh_trees=self.spec.refresh_trees,
+                             var_target=self.spec.var_target)
+
+    @property
+    def fitted(self) -> bool:
+        return self._monitor is not None and bool(self._monitor.detectors)
+
+    def fit(self, data: EventsOrColumns) -> List[Layer]:
+        from repro_torch.detect.families import ModelStackMonitor
+
+        contamination = (BATCH_CONTAMINATION
+                         if self.spec.contamination is None
+                         else self.spec.contamination)
+        self._monitor = ModelStackMonitor(
+            self._factory(), contamination=contamination,
+            min_events=self.spec.min_events).fit(data)
+        return list(self._monitor.detectors)
+
+    def update(self, data: EventsOrColumns) -> Dict[Layer, DetectionResult]:
+        if not self.fitted:
+            return {}
+        self._last = self._monitor.detect(data)
+        return self._last
+
+    def flags(self) -> Dict[Layer, DetectionResult]:
+        return self._last
+
+
+class OnlineModelBackend(OnlineGMMBackend):
+    """The streaming pipeline for any score-model family: swaps the GMM
+    window detector for an `OnlineModelDetector` and inherits everything
+    else (async trio, incidents, wire transport) from `OnlineGMMBackend`."""
+
+    family = ""
+
+    def _window_detector(self, contamination: float):
+        from repro_torch.detect.families import model_factory
+        from repro_torch.stream.backends import OnlineModelDetector
+
+        factory = model_factory(self.family, seed=self.spec.seed,
+                                n_trees=self.spec.n_trees,
+                                refresh_trees=self.spec.refresh_trees,
+                                var_target=self.spec.var_target)
+        return OnlineModelDetector(factory, family=self.family,
+                                   contamination=contamination,
+                                   min_events=self.spec.min_events,
+                                   seed=self.spec.seed)
+
+    def configure_topology(self, topology) -> None:
+        if topology is None:
+            return
+        raise ValueError(
+            "hierarchical topology currently requires the 'gmm' detector "
+            f"family (got backend={self.family!r}); drop the topology "
+            "section or switch backends")
+
+
+@register_detector("isoforest", mode="batch")
+class BatchIsoForestBackend(BatchModelBackend):
+    """Extended isolation ensemble (`repro_torch.detect.isoforest`), batch."""
+
+    family = "isoforest"
+
+
+@register_detector("isoforest", mode="stream")
+class OnlineIsoForestBackend(OnlineModelBackend):
+    """Extended isolation ensemble with warm-started tree reuse, stream."""
+
+    family = "isoforest"
+
+
+@register_detector("mad", mode="batch")
+class BatchMADBackend(BatchModelBackend):
+    """Robust per-feature quantile/MAD floor (`repro_torch.detect.robust`),
+    batch."""
+
+    family = "mad"
+
+
+@register_detector("mad", mode="stream")
+class OnlineMADBackend(OnlineModelBackend):
+    """Robust per-feature quantile/MAD floor, stream."""
+
+    family = "mad"
+
+
+@register_detector("spectral", mode="batch")
+class BatchSpectralBackend(BatchModelBackend):
+    """PCA/spectral-residual detector (`repro_torch.detect.spectral`),
+    batch."""
+
+    family = "spectral"
+
+
+@register_detector("spectral", mode="stream")
+class OnlineSpectralBackend(OnlineModelBackend):
+    """PCA/spectral-residual detector with incremental subspace updates,
+    stream."""
+
+    family = "spectral"

@@ -12,8 +12,7 @@ Factories receive ``(options, peers)``: the spec's per-probe option dict and
 the probes already built for the same collector, in spec order. That is how
 the step probe finds the operator/collective/device probes it drives — order
 the dependent probe after its peers in ``MonitorSpec.probes``. The
-reference's ``request`` probe and its isoforest/mad/spectral detector
-families wait for later slices (``LATER``).
+reference's ``request`` probe waits for the serve slice (``LATER``).
 """
 from __future__ import annotations
 
@@ -36,9 +35,6 @@ _SINKS: Dict[str, type] = {}
 # port: asking for one raises an error naming the slice
 LATER = {
     "probe": {"request": "serve/ (repro/serve/probe.py)"},
-    "detector backend": {name: "stream/backends.py and detect/ families "
-                         "(repro/detect/families.py)"
-                         for name in ("isoforest", "mad", "spectral")},
 }
 
 
@@ -104,8 +100,6 @@ def register_detector(name: str, mode: str) -> Callable[[type], type]:
 
 
 def detector_backend(name: str, mode: str) -> type:
-    if (name, mode) not in _DETECTORS:
-        _not_ported("detector backend", name)
     return _lookup(_DETECTORS, (name, mode), "detector backend")
 
 

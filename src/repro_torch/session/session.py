@@ -22,9 +22,10 @@ collector + probe suite built from the same spec).
 
 On a CUDA device the async detection plane's sweeps run on a stream of
 their own (`DetectionExecutor`), so they never queue behind the training
-step. Not ported yet, and raising until their slices: the request plane's
-SLOs (``spec.slo``, the serve slice; the spec refuses them), the
-hierarchical topology (``spec.topology``, the fleet slice) and the
+step. With a ``topology`` the stream backend runs the hierarchical fleet
+plane (`repro_torch.fleet`), each group's detector on the session's device.
+Not ported yet, and raising until their slices: the request plane's SLOs
+(``spec.slo``, the serve slice; the spec refuses them) and the
 self-telemetry layer (`obs_layer`, the obs slice).
 """
 from __future__ import annotations

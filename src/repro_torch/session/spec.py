@@ -132,8 +132,8 @@ class MonitorSpec:
     # fault kind + causal chain + recommended action on the MonitorReport
     diagnosis: bool = True
     # stream mode only: node -> group -> fleet aggregation tree + the
-    # agent-side backpressure governor (repro_torch.fleet; a session with a
-    # topology raises until the fleet slice). None = flat monitor.
+    # agent-side backpressure governor (repro_torch.fleet). None = flat
+    # monitor.
     topology: Optional[TopologySpec] = None
     # request-plane service-level objectives (the reference's
     # repro/serve/slo.py SLOSpec, or its dict form). When set and the

@@ -12,8 +12,9 @@ Public API:
     match_incidents   — incidents scored against labelled fault windows
     wire              — columnar Event-batch serialization
 
-The reference's pluggable detector families (`repro/stream/backends.py`)
-need `repro/detect/families.py` and come with a later slice.
+The pluggable model families' window detector is
+`repro_torch.stream.backends.OnlineModelDetector`; the hierarchical
+node -> group -> fleet monitor is `repro_torch.fleet.HierarchicalMonitor`.
 """
 from repro_torch.stream import wire  # noqa: F401
 from repro_torch.stream.agent import NodeAgent  # noqa: F401

@@ -9,12 +9,12 @@ out, zero `Event` objects. Dropped-event counts are carried per batch so the
 aggregator can account for ring overruns (paper: bounded-memory perf
 buffers) without trusting the stream to be complete.
 
-At fleet scale the agent optionally runs a `BackpressureGovernor` (the JAX
-package's `repro/fleet/governor.py`, not ported yet) on the agent→group
-path: when the group tier signals pressure, the governor sheds load by
-stratified per-layer sampling BEFORE encoding — never starving a layer, and
-stamping the shed count into the batch header so the loss is accounted
-fleet-wide, not silent.
+At fleet scale the agent optionally runs a `BackpressureGovernor`
+(`repro_torch.fleet.governor`) on the agent→group path: when the group
+tier signals pressure, the governor sheds load by stratified per-layer
+sampling BEFORE encoding — never starving a layer, and stamping the shed
+count into the batch header so the loss is accounted fleet-wide, not
+silent.
 """
 from __future__ import annotations
 
@@ -35,9 +35,10 @@ class NodeAgent:
     the node's NTP-disciplined epoch offset, in simulation it aligns the
     per-node monotonic clocks.
 
-    ``governor`` (optional) is any object with the `BackpressureGovernor`
-    surface of the JAX package's `repro/fleet/governor.py` (``admit(cols)
-    -> (cols, shed_by_layer)`` and ``budget``), applied to every flush;
+    ``governor`` (optional) is a
+    `repro_torch.fleet.governor.BackpressureGovernor` (or anything with its
+    ``admit(cols) -> (cols, shed_by_layer)`` and ``budget``), applied to
+    every flush;
     ``wire_version`` selects the wire encoding (defaults to `wire.VERSION`,
     the compressed v3 format).
     """

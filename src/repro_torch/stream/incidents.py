@@ -22,7 +22,7 @@ stream has moved ``close_after_s`` past their last flag.
 The engine accepts batch `DetectionResult`s alongside streaming
 `WindowDetection`s (the session's batch finalise runs its final sweep
 through a fresh engine), and finalised incidents feed the root-cause
-diagnoser (the JAX package's `repro/diagnosis/`, not ported yet) —
+diagnoser (`repro_torch.diagnosis`) —
 ``layer_first_ts`` is recorded per incident so the diagnoser can order the
 causal chain by deficit lead/lag.
 """

@@ -24,8 +24,10 @@ Driver contract (see `repro_torch.quickstart.run_stream`):
     incidents += mon.finish()
     print(mon.render_report())
 
-The JAX package drives this class through its session facade
-(`repro/session/`), which the port does not have yet.
+Prefer `repro_torch.session.Session` with a ``MonitorSpec(mode="stream")``
+as the driver entry point: the session drives this class (or, with a
+``topology``, the hierarchical `repro_torch.fleet.HierarchicalMonitor`) and
+folds its output into the unified `MonitorReport`.
 """
 from __future__ import annotations
 
@@ -90,9 +92,9 @@ class StreamMonitor:
         self.aggregator = FleetAggregator(capacity_per_layer=capacity_per_layer,
                                           horizon_s=horizon_s)
         # any per-window detector with the OnlineGMMDetector surface
-        # (warmup/warmed/detect/stats) slots in — the JAX package's
-        # repro/stream/backends.py has the pluggable model families; None =
-        # the GMM default
+        # (warmup/warmed/detect/stats) slots in — see
+        # repro_torch.stream.backends for the pluggable model families;
+        # None = the GMM default
         self.detector = (detector if detector is not None
                          else OnlineGMMDetector(n_components=n_components,
                                                 contamination=contamination,

@@ -191,22 +191,14 @@ def test_probe_names_are_the_reference_minus_the_serve_plane():
 
 
 @pytest.mark.parametrize("kind,name,where", [
-    ("probe", "request", "serve/"),
-    ("detector", "isoforest", "detect/ families"),
-    ("detector", "mad", "detect/ families"),
-    ("detector", "spectral", "detect/ families")])
+    ("probe", "request", "serve/")])
 def test_later_probes_and_backends_name_their_slice(kind, name, where):
     """What the reference registers and the port does not have yet raises
-    an error naming the slice, not a bare lookup miss."""
-    assert (name in jregistry.probe_names() if kind == "probe"
-            else name in jregistry.detector_names())
+    an error naming the slice, not a bare lookup miss. (The detector
+    families are ported: tests/test_torch_families.py.)"""
+    assert name in jregistry.probe_names()
     with pytest.raises(NotImplementedError, match=where):
-        if kind == "probe":
-            registry.build_probe(name)
-        else:
-            Session(MonitorSpec(mode="batch",
-                                detector=DetectorSpec(backend=name)),
-                    device=CPU)
+        registry.build_probe(name)
 
 
 @pytest.mark.parametrize("kind", ["prometheus", "board"])
@@ -216,9 +208,8 @@ def test_live_sinks_name_the_obs_slice(kind):
 
 
 def test_topology_and_telemetry_name_their_slices():
-    with pytest.raises(NotImplementedError, match="fleet/ slice"):
-        Session(MonitorSpec(mode="stream", topology={"group_size": 2}),
-                device=CPU)
+    """The self-telemetry layer raises naming its slice. (The topology is
+    ported: tests/test_torch_fleet.py.)"""
     with pytest.raises(NotImplementedError, match="obs/ slice"):
         Session(MonitorSpec(mode="batch"), device=CPU).obs_layer()
 

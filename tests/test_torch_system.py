@@ -209,6 +209,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.roofline", "repro_torch.session.session",
             "repro_torch.detect.executor",
             "repro_torch.core.probes.runtime_probe"} <= set(mods)
+    # and those of the fleet and detector-family slice
+    assert {"repro_torch.fleet.governor", "repro_torch.fleet.group",
+            "repro_torch.fleet.plane", "repro_torch.detect.families",
+            "repro_torch.detect.isoforest", "repro_torch.detect.robust",
+            "repro_torch.detect.spectral",
+            "repro_torch.stream.backends"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -229,7 +235,9 @@ def test_import_scan_respects_the_repro_torch_prefix(line, bad):
 def test_port_sources_and_chip_smoke_import_no_jax():
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert {PORT / "diagnosis" / "engine.py", PORT / "fleet" / "topology.py",
-            PORT / "launch" / "train.py", PORT / "roofline.py"} <= set(files)
+            PORT / "launch" / "train.py", PORT / "roofline.py",
+            PORT / "fleet" / "plane.py", PORT / "detect" / "families.py",
+            PORT / "stream" / "backends.py"} <= set(files)
     hits = [f"{f}:{m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
