@@ -94,9 +94,33 @@ Phases, each printing one JSON line of its own:
    against ``session_path``'s unmonitored rate, incidents against the
    fault windows. Gates: finite loss, a detection for every warmed layer,
    no lost batch, no GMM kernel launch and no plain GMM call.
-9. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
+9. ``eval_path``: the scenario-matrix evaluation harness on the card, in
+   two passes, each cell's launches counted from 0. Pass A is the reference
+   CI gate, `repro_torch.launch.evaluate` in-process with ``--scenarios
+   smoke --modes batch,stream --device cuda`` (3 scenarios x 2 modes, 240
+   steps, the synthetic step CUDA-graphed); its exit code must be 0. Pass B
+   runs in a child process (``chip_smoke.py --eval-pass-b OUT``), whose
+   CUDA context has run nothing on a second stream (see
+   `eval_pass_b_isolated`), and composes each cell from the runner's own
+   pieces (its spec, `_FAKE_HLO`, the scenario's injector, `_drive`,
+   `ScenarioRun`, `matrix._row`) around the full-width GPT-2 step, built once and shared: clean_control,
+   runtime_stall, comm_slowdown, degraded_device and memory_leak, batch and
+   stream, 240 steps each. One ``eval_cell`` line a cell (F1, FAR, faults
+   found, detection ms a window, wall seconds, the monitored step's p50 and
+   p90 ms, the expected layers' anomaly rates, diagnoses, COLLECTIVE and
+   runtime rows, launches), one ``eval_path`` line a pass. Gates, every
+   cell: finite losses; batch cells launched gmm_score and gmm_best, stream
+   cells gmm_update, only specialised variants, no plain call; the
+   collective probe emitted one row per `_FAKE_HLO` message per step (and
+   its registration's), as the CPU parity test fixes; no runtime-probe row
+   inside a detection zone; no failed device sample. Pass B's clean control,
+   both modes: FAR under `FAR_CEILING` and no diagnosis (the reference's
+   own gate, `repro/launch/evaluate.py:140-152`). Listed under ``unmet``,
+   not enforced: pass B's mean blamed-kind accuracy under the reference's
+   0.5.
+10. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
    K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
-10. ``profile``: torch.profiler over 5 full-width training steps, one
+11. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
@@ -111,7 +135,7 @@ device time per wrapper call, the plain version's, its bound, and beside
 them the launch alone, the eager per-call time, the kernels and memsets a
 wrapper call puts on the stream, counted with torch.profiler, which must be
 one kernel and, for the EM kernels, one memset, and the variants each path
-launched, the fleet path's among them), the card's name and power limit as
+launched, the fleet and eval paths' among them), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero before that line. TF32 is off for matmuls
@@ -1415,6 +1439,365 @@ def families_phase(train, reset_counts, read_counts, off_steady):
     return line
 
 
+# the eval phase: pass B's scenarios (latency_spike is left out: main_path
+# and stream_path measure op_latency at full width), its steps, the modes
+EVAL_B_SCENARIOS = ("clean_control", "runtime_stall", "comm_slowdown",
+                    "degraded_device", "memory_leak")
+EVAL_STEPS = 240
+EVAL_MODES = ("batch", "stream")
+EVAL_KERNELS = {"batch": ("gmm_score", "gmm_best"), "stream": ("gmm_update",)}
+
+
+def eval_cell_extras(session, step_s, counts):
+    """What a ScenarioRun's report does not keep, read off the cell's
+    session: rows each probe emitted, the runtime probe's rows, failed
+    device samples, the monitored step's wall ms (p50, p90) from
+    ``step_s``, the cell's launches, plain calls and variants, and the
+    flagged steps per layer."""
+    import numpy as np
+
+    emitted = session.collector.overhead_stats()["emitted_per_probe"]
+    launches, plain, variants = counts
+    report = session.result()
+    return {"rows_per_probe": emitted,
+            "runtime_rows": session.collector["xla"].emitted,
+            "failed_samples": session.collector["device"].failed_samples,
+            "step_ms_p50_p90": (np.percentile(1e3 * np.asarray(step_s),
+                                              [50, 90]).tolist()
+                                if step_s else None),
+            "launches": launches, "plain_calls": plain,
+            "variants": variants,
+            "flagged_steps": {k: [int(x) for x in v.anomalous_steps]
+                              for k, v in report.layers.items()}}
+
+
+@contextlib.contextmanager
+def watched_cell(session, reset_counts, read_counts, read_all_variants):
+    """For the block: each call of the step that ``session.observe_step_fn``
+    returns timed, and the launch counts set to 0 before and read after
+    (the session's finalise, inside the block, included). Yields a dict
+    that holds ``extras`` once the block has run."""
+    step_s = []
+    observe = session.observe_step_fn
+
+    def timed_observe(fn, **kw):
+        monitored = observe(fn, **kw)
+
+        def call(*a):
+            t0 = time.perf_counter()
+            out = monitored(*a)
+            step_s.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    session.observe_step_fn = timed_observe
+    cell = {}
+    reset_counts()
+    try:
+        yield cell
+    finally:
+        counts = (*read_counts(), read_all_variants())
+        session.observe_step_fn = observe
+    cell["extras"] = eval_cell_extras(session, step_s, counts)
+
+
+def eval_cell_line(pass_name, row, extras):
+    """One cell's printed line: the matrix row's scores beside the
+    extras."""
+    m = row["metrics"]
+    dg = row.get("diagnosis", {})
+    return {
+        "phase": "eval_cell", "pass": pass_name, "scenario": row["scenario"],
+        "mode": row["mode"], "f1": m["f1"],
+        "false_alarm_rate": m["false_alarm_rate"],
+        "faults": f"{m['faults_detected']}/{m['faults_total']}",
+        "fault_recall": m["fault_recall"], "ttd_steps": m["ttd_steps"],
+        "detect_ms_per_window": row["detect_ms_per_window"],
+        "wall_s": row["wall_s"],
+        "expected_layers": {
+            name: (row["layers"][name]["anomaly_rate"]
+                   if name in row["layers"] else None)
+            for name in row["expected_layers"]},
+        "anomaly_rates": {k: v["anomaly_rate"]
+                          for k, v in row["layers"].items()},
+        "layer_rows": {k: v["events"] for k, v in row["layers"].items()},
+        "incidents": row.get("incidents"),
+        "diagnoses": dg.get("kinds"), "kind_accuracy": dg.get("kind_accuracy"),
+        **extras}
+
+
+def check_eval_cell(where, line, n_msgs):
+    """The gates every eval cell holds."""
+    mode = line["mode"]
+    if not all(line["launches"][k] for k in EVAL_KERNELS[mode]):
+        raise SmokeFailure(f"{where}: a kernel was not launched: "
+                           f"{line['launches']}")
+    if any(v["general"] for v in line["variants"].values()):
+        raise SmokeFailure(f"{where} launched a general kernel: "
+                           f"{line['variants']}")
+    if any(line["plain_calls"].values()):
+        raise SmokeFailure(f"{where}: plain versions ran: "
+                           f"{line['plain_calls']}")
+    want = n_msgs * (EVAL_STEPS + 1)  # registration + one row a message a step
+    got = line["rows_per_probe"].get("collective")
+    if got != want or line["layer_rows"].get("collective") != \
+            n_msgs * EVAL_STEPS:
+        raise SmokeFailure(f"{where}: COLLECTIVE rows {got} emitted, "
+                           f"{line['layer_rows'].get('collective')} detected,"
+                           f" not {want} and {n_msgs * EVAL_STEPS}")
+    if line["failed_samples"]:
+        raise SmokeFailure(f"{where}: {line['failed_samples']} failed device "
+                           "samples")
+
+
+def eval_pass_a(reset_counts, read_counts, read_all_variants):
+    """Pass A: the reference's CI gate (`repro_torch.launch.evaluate
+    --scenarios smoke --modes batch,stream`) in-process on the card, each
+    cell's session watched through the runner's train workload. Returns
+    the pass's line and the cells' lines."""
+    from repro_torch.eval import runner
+    from repro_torch.launch import evaluate
+
+    out_dir = os.path.join(ROOT, "results", "eval_smoke")
+    inner = runner._run_train_steps
+    cells = []
+
+    def watched(session, *a):
+        with watched_cell(session, reset_counts, read_counts,
+                          read_all_variants) as cell:
+            step_ts = inner(session, *a)
+        cells.append(cell["extras"])
+        return step_ts
+
+    t0 = time.perf_counter()
+    runner._run_train_steps = watched
+    try:
+        with runtime_leaks() as leaks:
+            rc = evaluate.main(["--scenarios", "smoke", "--modes",
+                                "batch,stream", "--device", "cuda", "--out",
+                                out_dir])
+    finally:
+        runner._run_train_steps = inner
+    with open(os.path.join(out_dir, "scenario_matrix.json")) as f:
+        mx = json.load(f)
+    lines = [eval_cell_line("A", row, extras)
+             for row, extras in zip(mx["rows"], cells)]
+    return {"rc": rc, "matrix": mx, "leaks": leaks,
+            "seconds": time.perf_counter() - t0}, lines
+
+
+def eval_pass_b(reset_counts, read_counts, read_all_variants):
+    """Pass B: EVAL_B_SCENARIOS x EVAL_MODES at 240 steps, each cell built
+    as `run_scenario` builds it (the runner's spec, `_FAKE_HLO`, the
+    scenario's injector, `_drive`, `ScenarioRun`, `matrix._row`) around the
+    full-width GPT-2 124M step (bf16, batch 8, sequence 128, CUDA-graphed),
+    built once by `quickstart._workload`, its set-up calls made
+    before the first cell, and shared by every cell. Returns the pass's
+    line and the cells' lines."""
+    import torch
+
+    from repro_torch import quickstart
+    from repro_torch.core.chaos import get_scenario
+    from repro_torch.eval import matrix, runner
+    from repro_torch.models.model import batch_to_device
+    from repro_torch.session import MonitorSpec, Session
+
+    t_pass = time.perf_counter()
+    dev = torch.device("cuda")
+    cells = len(EVAL_B_SCENARIOS) * len(EVAL_MODES)
+    batch, seq, data, state, step_fn = quickstart._workload(
+        False, dev, cells * EVAL_STEPS + quickstart.SETUP_STEPS)
+    for s in range(quickstart.SETUP_STEPS):  # graph capture, first use
+        state, _ = step_fn(state, batch_to_device(data.batch(s), dev))
+    torch.cuda.synchronize()
+    cfg = runner.EvalConfig()
+    rows, cells_out, finite = [], [], True
+    with runtime_leaks() as leaks:
+        for name in EVAL_B_SCENARIOS:
+            scenario = get_scenario(name)
+            for mode in EVAL_MODES:
+                n = EVAL_STEPS
+                eval_start = int(n * scenario.clean_fraction)
+                injector = scenario.injector(n)
+                spec = MonitorSpec(
+                    mode=mode, probes=list(runner.EVAL_PROBES),
+                    probe_options={"device": {
+                        "interval": cfg.device_interval}},
+                    detector=cfg.detector_spec(holdoff_steps=n - eval_start,
+                                               seed=0),
+                    diagnosis=cfg.diagnosis, governor=False, seed=0)
+                session = Session(spec, device=dev)
+                losses = []
+                t0 = time.perf_counter()
+                with watched_cell(session, reset_counts, read_counts,
+                                  read_all_variants) as cell:
+                    with session.monitoring():
+                        session.collector["collective"].register_compiled(
+                            runner._FAKE_HLO)
+                        fn = session.observe_step_fn(
+                            step_fn, sample_args=(state, data.batch(0)),
+                            mem_gb=0.5)
+
+                        def one_step(s):
+                            nonlocal state
+                            state, metrics = fn(state, batch_to_device(
+                                data.batch(s), dev))
+                            losses.append(metrics["loss"])
+
+                        step_ts = runner._drive(session, injector, n,
+                                                eval_start, cfg, one_step)
+                run = runner.ScenarioRun(
+                    scenario=scenario, mode=mode, config=cfg, n_steps=n,
+                    eval_start=eval_start, labels=injector.labels(n),
+                    windows=injector.windows(),
+                    faults=list(injector.faults), step_ts=step_ts,
+                    report=session.result(),
+                    wall_s=time.perf_counter() - t0)
+                row = matrix._row(run)
+                rows.append(row)
+                loss = torch.stack(losses).float().cpu()
+                finite &= bool(torch.isfinite(loss).all())
+                cells_out.append((row, cell["extras"], float(loss[-1])))
+                del session, run
+                gc.collect()
+    lines = []
+    for row, extras, loss_last in cells_out:
+        lines.append(eval_cell_line("B", row, extras))
+        lines[-1]["loss_last"] = loss_last
+    mx = {"n_steps": EVAL_STEPS, "seed": 0, "modes": list(EVAL_MODES),
+          "configs": {"default": matrix._config_json(cfg)},
+          "far_ceiling": matrix.FAR_CEILING, "rows": rows,
+          "winners": matrix.crown_winners(rows)}
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"matrix": mx, "leaks": leaks, "losses_finite": finite,
+            "batch": batch, "seq": seq,
+            "seconds": time.perf_counter() - t_pass}, lines
+
+
+def eval_pass_b_child(out_path) -> int:
+    """``chip_smoke.py --eval-pass-b OUT``: pass B alone, in a process of
+    its own, its pass and cell lines written to OUT as JSON."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res, lines = eval_pass_b(*counters())
+    with open(out_path, "w") as f:  # NumPy scalars as Python numbers
+        json.dump({"res": res, "lines": lines}, f,
+                  default=lambda o: o.item())
+    return 0
+
+
+def eval_pass_b_isolated(reset_counts, read_counts, read_all_variants):
+    """Pass B in a child process (`eval_pass_b_child`), whose CUDA context
+    has run nothing on a second stream: kernels on a second stream (the
+    thread executor's sweeps in ``session_path``) move a context's graph
+    replays between two levels ~5% apart, and the context may move again
+    at a random later time (scripts/step_levels.py); such a move inside a
+    clean control is a false alarm. The counts are set to 0 and read in the child, around
+    each cell."""
+    out = os.path.join(ROOT, "results", "eval_pass_b.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--eval-pass-b", out],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        timeout=600)
+    if proc.returncode or not os.path.exists(out):
+        raise SmokeFailure(f"eval_path pass B: its process exited "
+                           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    return got["res"], got["lines"]
+
+
+def eval_phase(reset_counts, read_counts, read_all_variants):
+    """Phase ``eval_path``: pass A, then pass B (`eval_pass_a`,
+    `eval_pass_b_isolated`), each cell's line printed, then one line a pass; then the
+    gates. Returns the launches and variants summed over every cell."""
+    from repro_torch.core.probes.collective_probe import parse_hlo_collectives
+    from repro_torch.eval import matrix, runner
+
+    n_msgs = len(parse_hlo_collectives(runner._FAKE_HLO))
+    totals = {"launches": {}, "variants": {}}
+    passes = {}
+    for name, fn in (("A", eval_pass_a), ("B", eval_pass_b_isolated)):
+        res, lines = fn(reset_counts, read_counts, read_all_variants)
+        for line in lines:
+            emit(line)
+            for k, v in line["launches"].items():
+                totals["launches"][k] = totals["launches"].get(k, 0) + v
+            for k, v in line["variants"].items():
+                tv = totals["variants"].setdefault(
+                    k, {"specialised": 0, "general": 0})
+                for kk in tv:
+                    tv[kk] += v[kk]
+        mx = res["matrix"]
+        far = matrix.clean_control_far(mx)
+        acc = matrix.mean_kind_accuracy(mx)
+        a_clean = [l for l in lines if l["scenario"] == "clean_control"]
+        summary = {
+            "phase": "eval_path", "pass": name, "cells": len(lines),
+            "steps": EVAL_STEPS, "clean_control_far": far,
+            "far_ceiling": matrix.FAR_CEILING,
+            "clean_control_diagnoses": matrix.clean_control_diagnoses(mx),
+            "mean_kind_accuracy": acc,
+            "winners": [{"kind": w["kind"], "mode": w["mode"],
+                         "f1": w["winner"]["f1"]} for w in mx["winners"]],
+            "clean_step_ms_p50_p90": {l["mode"]: l["step_ms_p50_p90"]
+                                      for l in a_clean},
+            "runtime_rows_in_zone": res["leaks"]["in_zone"],
+            "runtime_rows_on_worker": res["leaks"]["on_worker"],
+            "seconds": res["seconds"], "unmet": []}
+        if name == "A":
+            summary["rc"] = res["rc"]
+        else:
+            summary.update(batch=res["batch"], seq=res["seq"],
+                           losses_finite=res["losses_finite"])
+            if acc is not None and acc < 0.5:
+                summary["unmet"].append(
+                    f"mean blamed-kind accuracy {acc} under the reference's "
+                    "--min-kind-acc 0.5 (ROADMAP §3)")
+            summary["clean_control_far_by_mode"] = {
+                l["mode"]: l["false_alarm_rate"] for l in a_clean}
+        emit(summary)
+        passes[name] = (summary, lines)
+    for name, (summary, lines) in passes.items():
+        where = f"eval_path pass {name}"
+        for line in lines:
+            check_eval_cell(f"{where} {line['scenario']} {line['mode']}",
+                            line, n_msgs)
+        if summary["runtime_rows_in_zone"] or summary["runtime_rows_on_worker"]:
+            raise SmokeFailure(f"{where}: runtime-probe rows inside a "
+                               f"detection zone: {summary}")
+    a = passes["A"][0]
+    if a["rc"]:
+        raise SmokeFailure(f"eval_path pass A: the evaluator exited "
+                           f"{a['rc']} (clean-control FAR "
+                           f"{a['clean_control_far']}, diagnoses "
+                           f"{a['clean_control_diagnoses']}, mean kind "
+                           f"accuracy {a['mean_kind_accuracy']})")
+    b = passes["B"][0]
+    if not b["losses_finite"]:
+        raise SmokeFailure("eval_path pass B: non-finite training loss")
+    if b["clean_control_diagnoses"] != 0:
+        raise SmokeFailure(f"eval_path pass B: "
+                           f"{b['clean_control_diagnoses']} diagnoses on the "
+                           "clean control")
+    for l in passes["B"][1]:
+        if l["scenario"] == "clean_control" and \
+                l["false_alarm_rate"] >= matrix.FAR_CEILING:
+            raise SmokeFailure(
+                f"eval_path pass B: {l['mode']} clean-control FAR "
+                f"{l['false_alarm_rate']} not under {matrix.FAR_CEILING}; "
+                f"STEP rows flagged at {l['flagged_steps'].get('step')}")
+    return totals
+
+
 def build_phase(build, kmod, card):
     """Phase 1: every CUDA source built at once; fails unless ptxas
     reported every specialised kernel (both dtypes; score, best and EM for
@@ -1480,6 +1863,29 @@ def kernel_check_phase(ops, kmod, smod):
           "seconds": time.perf_counter() - t_phase})
 
 
+def counters():
+    """(reset_counts, read_counts, read_all_variants) over the kernel
+    wrappers' launch counts, variants and the plain versions' calls."""
+    from repro_torch.kernels import gmm_score as kmod, gmm_stats as smod, ref
+
+    def reset_counts():
+        for counts in (kmod.LAUNCHES, smod.LAUNCHES, ref.CALLS):
+            for k in counts:
+                counts[k] = 0
+        for variants in (kmod.VARIANTS, smod.VARIANTS):
+            for v in variants.values():
+                v.update(specialised=0, general=0)
+
+    def read_counts():
+        return {**kmod.LAUNCHES, **smod.LAUNCHES}, dict(ref.CALLS)
+
+    def read_all_variants():
+        return {k: dict(v) for counts in (kmod.VARIANTS, smod.VARIANTS)
+                for k, v in counts.items()}
+
+    return reset_counts, read_counts, read_all_variants
+
+
 def main() -> int:
     import torch
 
@@ -1510,20 +1916,7 @@ def main() -> int:
           "max_rel_grad_err": rel_grad,
           "seconds": time.perf_counter() - t_phase})
 
-    def reset_counts():
-        for counts in (kmod.LAUNCHES, smod.LAUNCHES, ref.CALLS):
-            for k in counts:
-                counts[k] = 0
-        for variants in (kmod.VARIANTS, smod.VARIANTS):
-            for v in variants.values():
-                v.update(specialised=0, general=0)
-
-    def read_counts():
-        return {**kmod.LAUNCHES, **smod.LAUNCHES}, dict(ref.CALLS)
-
-    def read_all_variants():
-        return {k: dict(v) for counts in (kmod.VARIANTS, smod.VARIANTS)
-                for k, v in counts.items()}
+    reset_counts, read_counts, read_all_variants = counters()
 
     def read_variants(path):
         variants = read_all_variants()
@@ -1600,7 +1993,10 @@ def main() -> int:
     families_phase(train, reset_counts, read_counts,
                    session["modes"]["off"]["steady_steps_per_s"])
 
-    # 8. times at each path's largest shape and at scale
+    # 8. the scenario-matrix evaluation harness: the CI gate, then full width
+    ev = eval_phase(reset_counts, read_counts, read_all_variants)
+
+    # 9. times at each path's largest shape and at scale
     t_phase = time.perf_counter()
     N, D, K = shape
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
@@ -1643,12 +2039,14 @@ def main() -> int:
          "path": "main_path" if paths[name] is launches else "stream_path",
          "launches_by_path": {"main_path": launches[name],
                               "stream_path": s_launches[name],
-                              "fleet_path": fleet["launches"][name]},
+                              "fleet_path": fleet["launches"][name],
+                              "eval_path": ev["launches"][name]},
          "kernels_per_call": at_path[name]["nodes"]["kernels"],
          "memsets_per_call": at_path[name]["nodes"]["memsets"],
          "variants_by_path": {"main_path": variants[name],
                               "stream_path": s_variants[name],
-                              "fleet_path": fleet["variants"][name]}}
+                              "fleet_path": fleet["variants"][name],
+                              "eval_path": ev["variants"][name]}}
         for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")],
         "smoke_seconds": time.perf_counter() - t_smoke})
     print(card, flush=True)
@@ -1660,6 +2058,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--eval-pass-b"]:
+            sys.exit(eval_pass_b_child(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)

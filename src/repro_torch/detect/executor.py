@@ -36,6 +36,9 @@ in flight does not stretch the measured step either. The session runs its
 synchronous detection work on the same stream (`on_stream`), so every
 tensor of the detector is allocated, used and freed on one stream, and the
 caching allocator never hands a block still read by one stream to another.
+The session gives a stream to the thread executor only: an inline sweep
+runs on the training thread between steps anyway, and work on a second
+stream moves the job's later graph replays between two levels (`Session`).
 """
 from __future__ import annotations
 

@@ -110,9 +110,13 @@ class Session:
         if self.spec.detector.async_detect:
             from repro_torch.detect import DetectionExecutor
 
-            # on the card, sweeps get a stream of their own
+            # on the card, a threaded sweep gets a stream of its own; an
+            # inline sweep runs on the caller's: kernels on a second stream
+            # move the job's later graph replays between two levels ~5%
+            # apart (scripts/step_levels.py), a shift the STEP layer flags
             stream = (torch.cuda.Stream(self.device)
-                      if self.device.type == "cuda" else None)
+                      if self.device.type == "cuda"
+                      and self.spec.detector.executor == "thread" else None)
             self._executor = DetectionExecutor(
                 mode=self.spec.detector.executor, stream=stream)
             if hasattr(self._backend, "attach_executor"):

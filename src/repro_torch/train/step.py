@@ -66,12 +66,12 @@ def make_loss_and_grads(cfg: ModelConfig, rt: Runtime
 class CudaGraphed:
     """``loss_and_grads`` captured in a CUDA graph and replayed.
 
-    The first ``WARMUP`` calls run eagerly on a side stream (lazy library
-    set-up must not happen during capture); the next call copies its batch
-    into static buffers, captures, and replays. Later calls copy the batch
-    in and replay. The graph reads the parameters by address, so the caller
-    must update them in place, and every batch must have the first one's
-    shapes: both are checked. Grads are the graph's own buffers, overwritten
+    The first ``WARMUP`` calls run eagerly on the caller's stream (lazy
+    library set-up must not happen during capture); the next call copies
+    its batch into static buffers, captures, and replays. Later calls copy
+    the batch in and replay. The graph reads the parameters by address, so
+    the caller must update them in place, and every batch must have the
+    first one's shapes: both are checked. Grads are the graph's own buffers, overwritten
     by the next replay; loss and metrics are returned as copies."""
 
     WARMUP = 2
@@ -89,12 +89,10 @@ class CudaGraphed:
             raise ValueError("CudaGraphed runs on CUDA tensors only")
         self.calls += 1
         if self.calls <= self.WARMUP:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                out = self.fn(params, batch)
-            torch.cuda.current_stream().wait_stream(side)
-            return out
+            # on the caller's stream: kernels on a second stream move the
+            # graph's later replays between two levels ~5% apart
+            # (scripts/step_levels.py)
+            return self.fn(params, batch)
         ptrs = [p.data_ptr() for p in params.values()]
         if self.graph is None:
             self._batch = {k: v.clone() for k, v in batch.items()}

@@ -2,7 +2,8 @@
 (the EM kernels with poisoned padding rows, and bitwise repeatable), the
 wrappers' input checks, the CUDA-graphed train step against the eager one, a
 GMM fit and a streaming detector's warmup and tick on the card against the
-same on the CPU.
+same on the CPU, the eval runner's graphed synthetic step against the eager
+one and one scenario-matrix cell on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -509,3 +510,76 @@ def test_hierarchical_monitor_on_the_card_matches_the_cpu(cuda):
             assert not ((g.flags != c.flags) & ~near).any()
     for incidents in (ginc, cinc):
         assert any(1 in i.suspect_nodes for i in incidents)
+
+
+def test_graphed_synth_step_matches_eager(cuda):
+    """The eval runner's synthetic step captured in a CUDA graph against
+    the eager step, on new inputs at every call and when fed its own
+    output (the runner's loop): float32 products, rtol 1e-5 / atol 1e-6 at
+    the eager output's scale (max |eager|; the outputs are ~1e-24), and
+    each of the four products of the eager step against the CPU's."""
+    from repro_torch.eval.runner import (SYNTH_SHAPE, GraphedSynthStep,
+                                         _synth_iter, _synth_step)
+
+    def scaled_close(got, want):
+        scale = want.abs().max()
+        torch.testing.assert_close(got / scale, want / scale, rtol=1e-5,
+                                   atol=1e-6)
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    step = GraphedSynthStep()
+    for i in range(4):
+        x = torch.randn(SYNTH_SHAPE, generator=gen, device=cuda) * (1.0 + i)
+        want = _synth_step(x)
+        assert want.abs().max() > 0
+        scaled_close(step(x).clone(), want)
+        for _ in range(4):
+            nxt = _synth_iter(x)
+            scaled_close(nxt.cpu(), _synth_iter(x.cpu()))
+            x = nxt
+    assert step.graph is not None
+    x = torch.ones(SYNTH_SHAPE, device=cuda)
+    eager, graphed = x, x
+    for _ in range(3):
+        eager, graphed = _synth_step(eager), step(graphed)
+        scale = eager.abs().max()
+        torch.testing.assert_close(graphed, eager, rtol=1e-5,
+                                   atol=1e-6 * float(scale))
+
+
+def test_eval_cell_on_the_card(cuda):
+    """One scenario-matrix cell on the card (comm_slowdown, batch, 80
+    steps): the schedule fills the COLLECTIVE layer, one row per all-reduce
+    message per step (and the registration's), the runtime probe records
+    the graphed step, and the sweeps launch the scoring kernels with no
+    plain call."""
+    from repro_torch.core.chaos import get_scenario
+    from repro_torch.core.probes.collective_probe import parse_hlo_collectives
+    from repro_torch.eval.runner import _FAKE_HLO, run_scenario
+
+    n_msgs = len(parse_hlo_collectives(_FAKE_HLO))
+    launched, plain = dict(kmod.LAUNCHES), dict(ref.CALLS)
+    run = run_scenario(get_scenario("comm_slowdown"), "batch", n_steps=80,
+                       device=cuda)
+    emitted = run.report.overhead[0]["emitted_per_probe"]
+    assert emitted["collective"] == n_msgs * 81
+    assert run.report.layers["collective"].events == n_msgs * 80
+    assert emitted["xla"] > 0
+    assert kmod.LAUNCHES["gmm_score"] > launched["gmm_score"]
+    assert kmod.LAUNCHES["gmm_best"] > launched["gmm_best"]
+    assert dict(ref.CALLS) == plain
+
+
+def test_only_the_thread_executor_gets_a_stream_of_its_own(cuda):
+    """On the card a threaded detection plane sweeps on a CUDA stream of its
+    own; an inline one sweeps on the caller's stream, since kernels on a
+    second stream move the job's later graph replays between two levels
+    (scripts/step_levels.py), which the STEP layer then flags."""
+    from repro_torch.session import DetectorSpec, MonitorSpec, Session
+
+    for executor, own in (("thread", True), ("inline", False)):
+        spec = MonitorSpec(mode="batch", probes=["step"],
+                           detector=DetectorSpec(executor=executor))
+        session = Session(spec, device=cuda)
+        assert isinstance(session._executor.stream, torch.cuda.Stream) == own
+        session._executor.close()

@@ -13,6 +13,8 @@ the reference's own criteria (determinism within the port, calibration
 under the FAR ceiling), and tests/test_torch_session.py and
 tests/test_torch_stream.py hold their flags against the reference.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,19 +23,20 @@ torch.set_num_threads(2)
 
 from repro.core.events import Event as JEvent  # noqa: E402
 from repro.core.events import Layer as JLayer  # noqa: E402
-from repro.core.events import events_to_columns  # noqa: E402
+from repro.core.events import events_to_columns as j_columns  # noqa: E402
 from repro.detect import families as jfamilies  # noqa: E402
-from repro.eval.fixtures import FIXTURE_KINDS, fixture_case  # noqa: E402
-from repro.eval.matrix import FAR_CEILING  # noqa: E402
 from repro.session import registry as jregistry  # noqa: E402
 from repro.session.spec import DetectorSpec as JDetectorSpec  # noqa: E402
 from repro.stream import wire as jwire  # noqa: E402
 from repro_torch.core.events import Event, Layer  # noqa: E402
+from repro_torch.core.events import events_to_columns  # noqa: E402
 from repro_torch.detect import (DetectionExecutor,  # noqa: E402
                                 IsolationEnsemble, ModelStackMonitor,
                                 RobustMADModel, SpectralResidualModel,
                                 model_factory)
 from repro_torch.detect import families  # noqa: E402
+from repro_torch.eval.fixtures import FIXTURE_KINDS, fixture_case  # noqa: E402
+from repro_torch.eval.matrix import FAR_CEILING  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.session.detectors import Detector  # noqa: E402
 from repro_torch.session.registry import (detector_backend,  # noqa: E402
@@ -291,6 +294,13 @@ def test_families_run_no_gmm_kernel(name, mode):
 # the models against the reference's, live
 # ---------------------------------------------------------------------------
 
+def _to_reference(events):
+    """The port's events as the reference's, field for field, so each
+    package builds its columns with its own ``events_to_columns``."""
+    return [JEvent(**{**dataclasses.asdict(e), "layer": JLayer(e.layer.value)})
+            for e in events]
+
+
 def _feature_sets(seed, n=400, d=4):
     rng = np.random.default_rng(seed)
     base = rng.standard_normal((n, d)) @ rng.standard_normal((d, d))
@@ -338,17 +348,18 @@ def test_model_classes_are_exported_like_the_references():
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("kind", ["clean", *FIXTURE_KINDS])
 def test_batch_masks_equal_the_references(family, kind):
-    """The reference's golden-fixture cases (a clean prefix, then a window
-    with a burst per fault kind) through both packages' batch backends, run
+    """The golden-fixture cases (a clean prefix, then a window with a burst
+    per fault kind; the port's, bit-identical to the reference's,
+    tests/test_torch_eval.py) through both packages' batch backends, run
     live: equal thresholds, scores within rtol 1e-6, equal flag masks."""
     train, window, truth, layer = fixture_case(kind, seed=0)
     mine = _build(family, "batch", _spec(family, contamination=0.02))
     theirs = jregistry.detector_backend(family, "batch")(
         _spec(family, JDetectorSpec, contamination=0.02))
-    want_fit = theirs.fit(events_to_columns(train))
+    want_fit = theirs.fit(j_columns(_to_reference(train)))
     got_fit = mine.fit(events_to_columns(train))
     assert [l.value for l in got_fit] == [l.value for l in want_fit]
-    want = theirs.update(events_to_columns(window))
+    want = theirs.update(j_columns(_to_reference(window)))
     got = mine.update(events_to_columns(window))
     assert {l.value for l in got} == {l.value for l in want}
     for jl, w in want.items():

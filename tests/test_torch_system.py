@@ -215,6 +215,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.detect.isoforest", "repro_torch.detect.robust",
             "repro_torch.detect.spectral",
             "repro_torch.stream.backends"} <= set(mods)
+    # and those of the evaluation slice
+    assert {"repro_torch.eval", "repro_torch.eval.metrics",
+            "repro_torch.eval.fixtures", "repro_torch.eval.runner",
+            "repro_torch.eval.matrix",
+            "repro_torch.launch.evaluate"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -237,7 +242,10 @@ def test_port_sources_and_chip_smoke_import_no_jax():
     assert {PORT / "diagnosis" / "engine.py", PORT / "fleet" / "topology.py",
             PORT / "launch" / "train.py", PORT / "roofline.py",
             PORT / "fleet" / "plane.py", PORT / "detect" / "families.py",
-            PORT / "stream" / "backends.py"} <= set(files)
+            PORT / "stream" / "backends.py", PORT / "eval" / "runner.py",
+            PORT / "eval" / "metrics.py", PORT / "eval" / "fixtures.py",
+            PORT / "eval" / "matrix.py",
+            PORT / "launch" / "evaluate.py"} <= set(files)
     hits = [f"{f}:{m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
