@@ -23,6 +23,14 @@ event is complete, a ``graph_exec`` row carries the graph's device time.
 Calls made inside ``detect.guard.detection_zone()`` (the async detection
 plane's worker) are counted in ``dropped_in_zone`` and emit nothing.
 
+While a monitored step is in flight (`hold` ... `release`, which the step
+probe calls around the part of the step it times), the rows are queued and
+written once the step's time is taken: writing a row can fault in a fresh
+page of the event table, and a host stall there, inside the step, would
+show as a slow step on every layer. The reference's runtime listeners run
+during dispatch, not between the device's completion and the step's
+timestamp.
+
 The hooks are process-wide, like the reference's listeners: they are
 installed when the first runtime probe attaches and removed when the last
 one detaches, and every attached probe receives every call.
@@ -66,8 +74,22 @@ def hook_targets() -> List[Tuple[object, str, str]]:
 
 _LOCK = threading.Lock()
 _ACTIVE: List["CudaRuntimeProbe"] = []  # attached probes, in attach order
+_HELD = [0]  # monitored steps in flight (`hold` / `release`)
 # (owner, attribute, whether the owner defined it itself, its own value)
 _SAVED: List[Tuple[object, str, bool, object]] = []
+
+
+def hold() -> None:
+    """A monitored step is in flight: queue every probe's rows."""
+    _HELD[0] += 1
+
+
+def release() -> None:
+    """The step's time is taken: write the queued rows."""
+    _HELD[0] = max(_HELD[0] - 1, 0)
+    if not _HELD[0]:
+        for p in list(_ACTIVE):
+            p._flush()
 
 
 def _listeners() -> List["CudaRuntimeProbe"]:
@@ -144,6 +166,8 @@ class CudaRuntimeProbe(Probe):
         # graph launches whose device time is not read yet: (host ts of the
         # launch, start event, end event)
         self._pending: List[Tuple[float, object, object]] = []
+        # calls recorded while a step is in flight: (call, t0, t1, thread)
+        self._queued: List[Tuple[str, float, float, int]] = []
 
     def _attach(self) -> None:
         with _LOCK:
@@ -152,7 +176,7 @@ class CudaRuntimeProbe(Probe):
             _ACTIVE.append(self)
 
     def _detach(self) -> None:
-        self._resolve_graphs()
+        self._flush()
         with _LOCK:
             if self in _ACTIVE:
                 _ACTIVE.remove(self)
@@ -161,11 +185,27 @@ class CudaRuntimeProbe(Probe):
         self._pending = []
 
     def _record(self, call: str, t0: float, t1: float) -> None:
+        if _HELD[0]:
+            self._queued.append((call, t0, t1, threading.get_ident()))
+        else:
+            self._write(call, t0, t1, threading.get_ident())
+
+    def _write(self, call: str, t0: float, t1: float, tid: int) -> None:
         self.emit_rows(Layer.XLA, call, t0 - self._t0, dur=t1 - t0,
-                       pid=os.getpid(), tid=threading.get_ident())
+                       pid=os.getpid(), tid=tid)
+
+    def _flush(self) -> None:
+        """Write the queued rows, then the finished graphs' device times."""
+        queued, self._queued = self._queued, []
+        for rec in queued:
+            self._write(*rec)
+        self._resolve_graphs()
 
     def _resolve_graphs(self) -> None:
-        """Emit the device time of every graph launch that has finished."""
+        """Emit the device time of every graph launch that has finished
+        (deferred while a step is in flight)."""
+        if _HELD[0]:
+            return
         while self._pending and self._pending[0][2].query():
             t0, start, end = self._pending.pop(0)
             self.emit_rows(Layer.XLA, GRAPH_EXEC, t0 - self._t0,

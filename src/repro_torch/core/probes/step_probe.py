@@ -15,6 +15,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.events import Layer
+from repro_torch.core.probes import runtime_probe
 from repro_torch.core.probes.base import Probe
 from repro_torch.core.probes.device_probe import H100_PEAK_FLOPS
 
@@ -38,6 +39,7 @@ class StepProbe(Probe):
         # chaos hooks per monitored layer (seconds added to that layer's view):
         self.extra_xla = 0.0   # DCGM kernel-timeout analogue
         self.extra_op = 0.0    # pytorchfi operator-delay analogue
+        self._done = None  # the blocking CUDA event each step waits on
 
     def _attach(self) -> None:
         pass
@@ -49,14 +51,27 @@ class StepProbe(Probe):
         """Return a monitored version of `fn` (user code untouched)."""
 
         def monitored(*args, **kwargs):
+            runtime_probe.hold()  # its rows wait until the step is timed
+            try:
+                return timed(*args, **kwargs)
+            finally:
+                runtime_probe.release()
+
+        def timed(*args, **kwargs):
             t0 = self.now()
             out = fn(*args, **kwargs)
             # PyTorch returns before the card finishes: wait for the step's
             # kernels (its stream, not the device: the detection plane's
             # sweeps run on a stream of their own) so the duration is the
-            # step's, not its enqueue time
+            # step's, not its enqueue time. The wait is on a blocking event:
+            # the thread sleeps until the card signals, where a stream
+            # synchronisation spins on one core, and a spinning thread is
+            # late whenever that core is taken from it while the step ends
             if torch.cuda.is_initialized():
-                torch.cuda.current_stream().synchronize()
+                if self._done is None:
+                    self._done = torch.cuda.Event(blocking=True)
+                self._done.record()
+                self._done.synchronize()
             exec_dur = self.now() - t0
             if self.extra_latency:  # python-layer fault: real host-side stall
                 time.sleep(self.extra_latency)

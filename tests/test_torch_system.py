@@ -220,6 +220,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.eval.fixtures", "repro_torch.eval.runner",
             "repro_torch.eval.matrix",
             "repro_torch.launch.evaluate"} <= set(mods)
+    # and those of the serve slice
+    assert {"repro_torch.serve", "repro_torch.serve.engine",
+            "repro_torch.serve.continuous", "repro_torch.serve.request",
+            "repro_torch.serve.scheduler", "repro_torch.serve.probe",
+            "repro_torch.serve.slo", "repro_torch.launch.serve"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -238,14 +243,17 @@ def test_import_scan_respects_the_repro_torch_prefix(line, bad):
 
 
 def test_port_sources_and_chip_smoke_import_no_jax():
-    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + list(
+        (ROOT / "scripts").glob("*.py"))
     assert {PORT / "diagnosis" / "engine.py", PORT / "fleet" / "topology.py",
             PORT / "launch" / "train.py", PORT / "roofline.py",
             PORT / "fleet" / "plane.py", PORT / "detect" / "families.py",
             PORT / "stream" / "backends.py", PORT / "eval" / "runner.py",
             PORT / "eval" / "metrics.py", PORT / "eval" / "fixtures.py",
             PORT / "eval" / "matrix.py",
-            PORT / "launch" / "evaluate.py"} <= set(files)
+            PORT / "launch" / "evaluate.py", PORT / "launch" / "serve.py",
+            PORT / "serve" / "continuous.py",
+            PORT / "serve" / "engine.py"} <= set(files)
     hits = [f"{f}:{m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
