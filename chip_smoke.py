@@ -118,28 +118,9 @@ Phases, each printing one JSON line of its own:
    own gate, `repro/launch/evaluate.py:140-152`). Listed under ``unmet``,
    not enforced: pass B's mean blamed-kind accuracy under the reference's
    0.5.
-10. ``serve_path``: the serve plane at full width (GPT-2 124M, bf16), in
-   four parts. (a) One request stream through two 4-slot continuous
-   engines, the slot step a CUDA graph in one and eager in the other, with
-   mid-flight joins and an epoch reset (a 40-position budget): every
-   step's logits bitwise equal over >= 48 steps; 32 positions of decode
-   against the full forward within 2e-2 of each logit plus 2e-2 of the
-   largest; joined requests' tokens equal to the static-batch oracle's.
-   (b) `repro_torch.launch.serve` in-process, 64 requests in off, batch
-   and stream mode with ``slo`` ttft 0.4 s and queue wait 0.2 s: tok/s,
-   req/s, wait/TTFT/TPOT p50 and p95, the engine step's p50/p90 ms; gates:
-   every request served, no non-finite step, the slot step graphed, batch
-   launched gmm_score and gmm_best and stream gmm_update, specialised only,
-   no plain call, no runtime row in a detection zone. (c)
-   ``--scenarios serve-smoke`` on the card must exit 0 with tenant_flood
-   diagnosed, its cells equal to the same run on the CPU (the request
-   plane's virtual clock). (d) serve_latency_spike, serve_runtime_stall
-   and serve_degraded_device, both modes, 240 decode steps: each cell's
-   kernels as pass B's; mean blamed-kind accuracy under 0.5 is listed
-   under ``unmet``.
-11. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
+10. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
    K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
-12. ``profile``: torch.profiler over 5 full-width training steps, one
+11. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
@@ -154,7 +135,7 @@ device time per wrapper call, the plain version's, its bound, and beside
 them the launch alone, the eager per-call time, the kernels and memsets a
 wrapper call puts on the stream, counted with torch.profiler, which must be
 one kernel and, for the EM kernels, one memset, and the variants each path
-launched, the fleet, eval and serve paths' among them), the card's name and power limit as
+launched, the fleet and eval paths' among them), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero before that line. TF32 is off for matmuls
@@ -1467,17 +1448,6 @@ EVAL_MODES = ("batch", "stream")
 EVAL_KERNELS = {"batch": ("gmm_score", "gmm_best"), "stream": ("gmm_update",)}
 
 
-def tally(totals, launches, variants):
-    """Add one run's launches and variants into ``totals``."""
-    for k, v in launches.items():
-        totals["launches"][k] = totals["launches"].get(k, 0) + v
-    for k, v in variants.items():
-        tv = totals["variants"].setdefault(k, {"specialised": 0,
-                                               "general": 0})
-        for kk in tv:
-            tv[kk] += v[kk]
-
-
 def eval_cell_extras(session, step_s, counts):
     """What a ScenarioRun's report does not keep, read off the cell's
     session: rows each probe emitted, the runtime probe's rows, failed
@@ -1617,12 +1587,12 @@ def eval_pass_a(reset_counts, read_counts, read_all_variants):
 
 
 def eval_pass_b(reset_counts, read_counts, read_all_variants):
-    """Pass B: EVAL_B_SCENARIOS x EVAL_MODES at 240 steps, each cell built
-    as `run_scenario` builds it (the runner's spec, `_FAKE_HLO`, the
-    scenario's injector, `_drive`, `ScenarioRun`, `matrix._row`) around the
-    full-width GPT-2 124M step (bf16, batch 8, sequence 128, CUDA-graphed),
-    built once by `quickstart._workload`, its set-up calls made
-    before the first cell, and shared by every cell. Returns the pass's
+    """Pass B: EVAL_B_SCENARIOS x EVAL_MODES at 240 steps, each cell
+    `runner.run_model_cell` under a session of `runner.scenario_spec`,
+    scored by `matrix._row`, around the full-width GPT-2 124M step (bf16,
+    batch 8, sequence 128, CUDA-graphed), built once by
+    `quickstart._workload`, its set-up calls made before the first cell,
+    and shared by every cell. Returns the pass's
     line and the cells' lines."""
     import torch
 
@@ -1630,7 +1600,7 @@ def eval_pass_b(reset_counts, read_counts, read_all_variants):
     from repro_torch.core.chaos import get_scenario
     from repro_torch.eval import matrix, runner
     from repro_torch.models.model import batch_to_device
-    from repro_torch.session import MonitorSpec, Session
+    from repro_torch.session import Session
 
     t_pass = time.perf_counter()
     dev = torch.device("cuda")
@@ -1646,49 +1616,19 @@ def eval_pass_b(reset_counts, read_counts, read_all_variants):
         for name in EVAL_B_SCENARIOS:
             scenario = get_scenario(name)
             for mode in EVAL_MODES:
-                n = EVAL_STEPS
-                eval_start = int(n * scenario.clean_fraction)
-                injector = scenario.injector(n)
-                spec = MonitorSpec(
-                    mode=mode, probes=list(runner.EVAL_PROBES),
-                    probe_options={"device": {
-                        "interval": cfg.device_interval}},
-                    detector=cfg.detector_spec(holdoff_steps=n - eval_start,
-                                               seed=0),
-                    diagnosis=cfg.diagnosis, governor=False, seed=0)
-                session = Session(spec, device=dev)
-                losses = []
-                t0 = time.perf_counter()
+                session = Session(runner.scenario_spec(
+                    scenario, mode, EVAL_STEPS, cfg, seed=0), device=dev)
                 with watched_cell(session, reset_counts, read_counts,
                                   read_all_variants) as cell:
-                    with session.monitoring():
-                        session.collector["collective"].register_compiled(
-                            runner._FAKE_HLO)
-                        fn = session.observe_step_fn(
-                            step_fn, sample_args=(state, data.batch(0)),
-                            mem_gb=0.5)
-
-                        def one_step(s):
-                            nonlocal state
-                            state, metrics = fn(state, batch_to_device(
-                                data.batch(s), dev))
-                            losses.append(metrics["loss"])
-
-                        step_ts = runner._drive(session, injector, n,
-                                                eval_start, cfg, one_step)
-                run = runner.ScenarioRun(
-                    scenario=scenario, mode=mode, config=cfg, n_steps=n,
-                    eval_start=eval_start, labels=injector.labels(n),
-                    windows=injector.windows(),
-                    faults=list(injector.faults), step_ts=step_ts,
-                    report=session.result(),
-                    wall_s=time.perf_counter() - t0)
+                    run, state, metrics = runner.run_model_cell(
+                        session, scenario, EVAL_STEPS, cfg, step_fn, state,
+                        data)
                 row = matrix._row(run)
                 rows.append(row)
-                loss = torch.stack(losses).float().cpu()
+                loss = torch.stack([m["loss"] for m in metrics]).float().cpu()
                 finite &= bool(torch.isfinite(loss).all())
                 cells_out.append((row, cell["extras"], float(loss[-1])))
-                del session, run
+                del session, run, metrics
                 gc.collect()
     lines = []
     for row, extras, loss_last in cells_out:
@@ -1759,7 +1699,13 @@ def eval_phase(reset_counts, read_counts, read_all_variants):
         res, lines = fn(reset_counts, read_counts, read_all_variants)
         for line in lines:
             emit(line)
-            tally(totals, line["launches"], line["variants"])
+            for k, v in line["launches"].items():
+                totals["launches"][k] = totals["launches"].get(k, 0) + v
+            for k, v in line["variants"].items():
+                tv = totals["variants"].setdefault(
+                    k, {"specialised": 0, "general": 0})
+                for kk in tv:
+                    tv[kk] += v[kk]
         mx = res["matrix"]
         far = matrix.clean_control_far(mx)
         acc = matrix.mean_kind_accuracy(mx)
@@ -1820,349 +1766,6 @@ def eval_phase(reset_counts, read_counts, read_all_variants):
                 f"{l['false_alarm_rate']} not under {matrix.FAR_CEILING}; "
                 f"STEP rows flagged at {l['flagged_steps'].get('step')}")
     return totals
-
-
-# the serve phase: part a's engines, part b's launcher runs, part d's cells
-SERVE_SLO = {"ttft_s": 0.4, "queue_wait_s": 0.2}
-SERVE_REQUESTS = 64
-SERVE_MODES = ("off", "batch", "stream")
-SERVE_KERNELS = {"batch": ("gmm_score", "gmm_best"), "stream": ("gmm_update",)}
-SERVE_D_SCENARIOS = ("serve_latency_spike", "serve_runtime_stall",
-                     "serve_degraded_device")
-SERVE_TOL = 2e-2  # bf16 decode against the bf16 full forward (rtol; atol
-#                   is this times the largest logit)
-
-
-def graphed_vs_eager(cfg, rt, params):
-    """Part a's first check: one request stream through two 4-slot engines
-    on the card, the slot step replayed as a CUDA graph in one and eager in
-    the other; a ``max_len`` of 40 forces an epoch reset. Every step's
-    logits and every token must be bitwise equal."""
-    import torch
-
-    from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
-                                   RequestQueue, VirtualClock)
-
-    runs = []
-    for graphed in (True, False):
-        eng = ContinuousBatchingEngine(cfg, rt, params, slots=4, max_len=40,
-                                       seed=0, clock=VirtualClock(0.02))
-        step = eng._step_fn  # the engine's GraphedStep
-        if not graphed:
-            step.WARMUP = 1 << 30  # every call eager
-        logits = []
-
-        def kept(*a, step=step, logits=logits):
-            out = step(*a)
-            logits.append(out[0][:, -1].float().clone())
-            return out
-
-        eng._step_fn = kept
-        load = LoadGenerator(rate=0.6, num_requests=16, seed=3,
-                             prompt_len=(3, 8), max_new=(4, 10),
-                             vocab_size=cfg.vocab_size)
-        eng.run(load, queue=RequestQueue())
-        torch.cuda.synchronize()
-        runs.append((eng, step, torch.stack(logits)))
-    (g, gstep, lg), (e, _, le) = runs
-    same = (lg == le).all(dim=(1, 2))
-    return {"steps": int(lg.shape[0]), "captured": gstep.graph is not None,
-            "replays": gstep.replays,
-            "joins": sum(r.start_index > 0 for r in g.finished),
-            "epoch_resets": g.scheduler.epoch_resets,
-            "bitwise_equal_steps": int(same.sum()),
-            "max_abs_diff": float((lg - le).abs().max()),
-            "tokens_equal": [r.tokens for r in g.finished]
-            == [r.tokens for r in e.finished],
-            "nonfinite_steps": g.nonfinite_steps + e.nonfinite_steps}
-
-
-def decode_vs_forward(cfg, rt, params):
-    """Part a's second check: 32 prompt positions teacher-forced through the
-    graphed fixed-batch engine, against the full forward's logits, each
-    within SERVE_TOL of the logit plus SERVE_TOL of the largest logit. The
-    absolute part scales with the logits: in bf16 the decode's GEMMs (4
-    rows) and the forward's (128 rows) round apart by up to ~1% of the
-    logits' scale after 12 layers (0.016–0.031 at logits up to 2.9 on the
-    CPU, with the thread count alone)."""
-    import numpy as np
-    import torch
-
-    from repro_torch.models.model import forward
-    from repro_torch.serve import ServeEngine
-
-    eng = ServeEngine(cfg=cfg, rt=rt, params=params, batch_size=4,
-                      max_len=64)
-    tok = np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (4, 33)).astype(np.int32)
-    got = []
-    eng.generate(tok, 1, step_hook=lambda t, lg: got.append(
-        lg[:, -1].float().clone()))
-    with torch.no_grad():
-        want, _ = forward(params, cfg, rt, {"tokens": torch.as_tensor(
-            tok[:, :32], device=eng.device)})
-    got = torch.stack(got[:32], dim=1)
-    want = want.float()
-    err = (got - want).abs()
-    atol = SERVE_TOL * float(want.abs().max())
-    return {"positions": 32, "max_abs_err": float(err.max()),
-            "max_abs_logit": float(want.abs().max()),
-            "within_tol": bool((err <= atol
-                                + SERVE_TOL * want.abs()).all()),
-            "rtol": SERVE_TOL, "atol": atol,
-            "elementwise_2e-2": bool((err <= SERVE_TOL
-                                      + SERVE_TOL * want.abs()).all()),
-            "graph_replays": eng._graphed.replays}
-
-
-def join_oracle(cfg, rt, params):
-    """Part a's third check: `test_join_evict_matches_static_batch_oracle`'s
-    construction at full width on the card — six requests through a 2-slot
-    engine (joins into recycled lanes), each alone through the fixed-batch
-    engine; the tokens must match."""
-    import numpy as np
-
-    from repro_torch.serve import (ContinuousBatchingEngine, Request,
-                                   RequestQueue, ServeEngine, VirtualClock)
-
-    rng = np.random.default_rng(11)
-    reqs = [Request(req_id=i, tenant=0,
-                    prompt=rng.integers(1, cfg.vocab_size, size=int(
-                        rng.integers(3, 7))).astype(np.int32),
-                    max_new_tokens=int(rng.integers(4, 7)), enqueue_ts=0.0)
-            for i in range(6)]
-    eng = ContinuousBatchingEngine(cfg, rt, params, slots=2, max_len=256,
-                                   seed=0, clock=VirtualClock(0.02))
-    queue = RequestQueue()
-    for r in reqs:
-        queue.push(r)
-    s = 0
-    while len(queue) or eng.n_active:
-        eng.tick(s, None, queue, None)
-        s += 1
-    oracle = ServeEngine(cfg=cfg, rt=rt, params=params, batch_size=1,
-                         max_len=64)
-    compared = mismatched = 0
-    for r in eng.finished:
-        want = oracle.generate(r.prompt[None, :], r.max_new_tokens)
-        want = want[0, r.prompt_len:]
-        compared += len(want)
-        mismatched += int((np.asarray(r.tokens) != want).sum())
-    return {"requests": len(eng.finished),
-            "joined_mid_flight": sum(r.start_index > 0
-                                     for r in eng.finished),
-            "compared": compared, "mismatched": mismatched}
-
-
-def serve_part_a():
-    """Part a: the slot step's CUDA graph, decode against the forward, and
-    mid-flight joins against the static-batch oracle, at full width (GPT-2
-    124M, bf16)."""
-    import torch
-
-    from repro_torch.config import get_arch
-    from repro_torch.models.model import Runtime, init_params
-
-    t0 = time.perf_counter()
-    cfg = get_arch("gpt2")
-    rt = Runtime(compute_dtype=torch.bfloat16)
-    params = init_params(cfg, seed=0, device="cuda")
-    line = {"phase": "serve_path", "part": "a", "n_layers": cfg.n_layers,
-            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-            "graph": graphed_vs_eager(cfg, rt, params),
-            "decode_vs_forward": decode_vs_forward(cfg, rt, params),
-            "join_oracle": join_oracle(cfg, rt, params),
-            "seconds": time.perf_counter() - t0}
-    emit(line)
-    g, d, j = line["graph"], line["decode_vs_forward"], line["join_oracle"]
-    if not (g["captured"] and g["steps"] >= 48 and g["joins"]
-            and g["epoch_resets"]):
-        raise SmokeFailure(f"serve_path a: the graph run is too short or "
-                           f"lacks joins or an epoch reset: {g}")
-    if g["bitwise_equal_steps"] != g["steps"] or not g["tokens_equal"] \
-            or g["nonfinite_steps"]:
-        raise SmokeFailure(f"serve_path a: the graphed slot step differs "
-                           f"from the eager one: {g}")
-    if not d["within_tol"]:
-        raise SmokeFailure(f"serve_path a: decode against the forward: {d}")
-    if j["mismatched"] or not j["joined_mid_flight"]:
-        raise SmokeFailure(f"serve_path a: join oracle: {j}")
-    del params
-    torch.cuda.empty_cache()
-
-
-def serve_part_b(serve, reset_counts, read_counts, read_all_variants):
-    """Part b: `repro_torch.launch.serve` in-process at full width, 64
-    requests in each of SERVE_MODES with SERVE_SLO. Returns the launches
-    and variants summed over the monitored modes."""
-    import torch
-
-    t0 = time.perf_counter()
-    line = {"phase": "serve_path", "part": "b", "slo": SERVE_SLO,
-            "requests": SERVE_REQUESTS, "modes": {}}
-    totals = {"launches": {}, "variants": {}}
-    with runtime_leaks() as leaks:
-        for mode in SERVE_MODES:
-            t_mode = time.perf_counter()
-            args = serve.parser().parse_args(
-                ["--device", "cuda", "--num-requests", str(SERVE_REQUESTS),
-                 "--monitor-spec", json.dumps({"mode": mode,
-                                               "slo": SERVE_SLO})])
-            reset_counts()
-            out = serve.serve(args)
-            launches, plain = read_counts()
-            variants = read_all_variants()
-            res = {**out["stats"],
-                   "graphed": out["engine"]._step_fn.graph is not None,
-                   "seconds": time.perf_counter() - t_mode}
-            report = out["report"]
-            if report is not None:
-                res.update(
-                    incidents=[{"kind": i.kind, "suspect":
-                                i.suspect_layer.value,
-                                "severity": i.severity}
-                               for i in report.incidents],
-                    diagnoses=[d.fault_kind for d in report.diagnoses],
-                    rows_per_layer={k: v.events
-                                    for k, v in report.layers.items()},
-                    serve_stats=out["session"].serve_stats(),
-                    runtime_rows=out["session"].collector["xla"].emitted,
-                    launches=launches, plain_calls=plain, variants=variants)
-                tally(totals, launches, variants)
-            line["modes"][mode] = res
-            del out, report
-            torch.cuda.empty_cache()
-    line["runtime_rows_in_zone"] = leaks["in_zone"]
-    line["runtime_rows_on_worker"] = leaks["on_worker"]
-    line["seconds"] = time.perf_counter() - t0
-    emit(line)
-    for mode, res in line["modes"].items():
-        if res["requests"] != SERVE_REQUESTS or res["nonfinite_steps"] \
-                or not res["graphed"]:
-            raise SmokeFailure(f"serve_path b {mode}: {res['requests']} "
-                               f"requests, {res['nonfinite_steps']} "
-                               f"non-finite steps, graphed "
-                               f"{res['graphed']}")
-        if mode == "off":
-            continue
-        if not all(res["launches"][k] for k in SERVE_KERNELS[mode]):
-            raise SmokeFailure(f"serve_path b {mode}: a kernel was not "
-                               f"launched: {res['launches']}")
-        if any(v["general"] for v in res["variants"].values()) \
-                or any(res["plain_calls"].values()):
-            raise SmokeFailure(f"serve_path b {mode}: a general kernel or a "
-                               f"plain version ran: {res['variants']}, "
-                               f"{res['plain_calls']}")
-    if line["runtime_rows_in_zone"] or line["runtime_rows_on_worker"]:
-        raise SmokeFailure(f"serve_path b: runtime-probe rows inside a "
-                           f"detection zone: {leaks}")
-    return totals
-
-
-def serve_part_c():
-    """Part c: `repro_torch.launch.evaluate --scenarios serve-smoke` on the
-    card, its cells held against the same run on the CPU (the request
-    plane runs on a virtual clock: every SLO number must agree)."""
-    from repro_torch.launch import evaluate
-
-    t0 = time.perf_counter()
-    rows = {}
-    rcs = {}
-    for dev in ("cuda", "cpu"):
-        out = os.path.join(ROOT, "results", f"eval_serve_{dev}")
-        rcs[dev] = evaluate.main(["--scenarios", "serve-smoke", "--device",
-                                  dev, "--out", out])
-        with open(os.path.join(out, "scenario_matrix.json")) as f:
-            rows[dev] = json.load(f)["rows"]
-    cells = [{"scenario": r["scenario"], "mode": r["mode"], "slo": r["slo"],
-              "diagnoses": r["diagnosis"]["kinds"],
-              "equal_to_cpu": (r["slo"], r["diagnosis"]["kinds"])
-              == (c["slo"], c["diagnosis"]["kinds"])}
-             for r, c in zip(rows["cuda"], rows["cpu"])]
-    line = {"phase": "serve_path", "part": "c", "rc": rcs["cuda"],
-            "rc_cpu": rcs["cpu"], "cells": cells,
-            "seconds": time.perf_counter() - t0}
-    emit(line)
-    if rcs["cuda"]:
-        raise SmokeFailure(f"serve_path c: serve-smoke exited {rcs['cuda']}")
-    flood = [c for c in cells if c["scenario"] == "serve_tenant_flood"]
-    if not all("tenant_flood" in c["diagnoses"] for c in flood):
-        raise SmokeFailure(f"serve_path c: tenant_flood not diagnosed: "
-                           f"{flood}")
-    if not all(c["equal_to_cpu"] for c in cells):
-        raise SmokeFailure(f"serve_path c: the card's cells differ from the "
-                           f"CPU's: {cells}")
-
-
-def serve_part_d(reset_counts, read_counts, read_all_variants):
-    """Part d: the serve GMM scenarios at full width, 240 steps, both
-    modes, through `run_scenario`; each cell's line, then the part's.
-    Returns the launches and variants summed over the cells."""
-    from repro_torch.core.chaos import get_scenario
-    from repro_torch.eval import matrix, runner
-
-    t0 = time.perf_counter()
-    totals = {"launches": {}, "variants": {}}
-    rows = []
-    with runtime_leaks() as leaks:
-        for name in SERVE_D_SCENARIOS:
-            for mode in EVAL_MODES:
-                reset_counts()
-                run = runner.run_scenario(get_scenario(name), mode,
-                                          n_steps=EVAL_STEPS, device="cuda")
-                launches, plain = read_counts()
-                variants = read_all_variants()
-                row = matrix._row(run)
-                rows.append(row)
-                m = row["metrics"]
-                emit({"phase": "serve_cell", "scenario": name, "mode": mode,
-                      "f1": m["f1"], "false_alarm_rate":
-                      m["false_alarm_rate"],
-                      "faults": f"{m['faults_detected']}/"
-                                f"{m['faults_total']}",
-                      "diagnoses": row["diagnosis"]["kinds"],
-                      "kind_accuracy": row["diagnosis"]["kind_accuracy"],
-                      "layer_rows": {k: v["events"]
-                                     for k, v in row["layers"].items()},
-                      "wall_s": row["wall_s"], "launches": launches,
-                      "plain_calls": plain, "variants": variants})
-                if not all(launches[k] for k in EVAL_KERNELS[mode]) \
-                        or any(plain.values()) \
-                        or any(v["general"] for v in variants.values()):
-                    raise SmokeFailure(
-                        f"serve_path d {name} {mode}: kernels {launches}, "
-                        f"plain {plain}, variants {variants}")
-                tally(totals, launches, variants)
-                del run
-    acc = matrix.mean_kind_accuracy({"rows": rows})
-    line = {"phase": "serve_path", "part": "d", "cells": len(rows),
-            "steps": EVAL_STEPS, "mean_kind_accuracy": acc,
-            "runtime_rows_in_zone": leaks["in_zone"],
-            "runtime_rows_on_worker": leaks["on_worker"],
-            "seconds": time.perf_counter() - t0, "unmet": []}
-    if acc is not None and acc < 0.5:
-        line["unmet"].append(f"mean blamed-kind accuracy {acc} under the "
-                             "reference's --min-kind-acc 0.5 (ROADMAP §3)")
-    emit(line)
-    if leaks["in_zone"] or leaks["on_worker"]:
-        raise SmokeFailure(f"serve_path d: runtime-probe rows inside a "
-                           f"detection zone: {leaks}")
-    return totals
-
-
-def serve_phase(reset_counts, read_counts, read_all_variants):
-    """Phase ``serve_path``: parts a-d. Returns the launches and variants
-    of the monitored runs (parts b and d) summed."""
-    from repro_torch.launch import serve
-
-    serve_part_a()
-    b = serve_part_b(serve, reset_counts, read_counts, read_all_variants)
-    serve_part_c()
-    d = serve_part_d(reset_counts, read_counts, read_all_variants)
-    out = {"launches": {}, "variants": {}}
-    for part in (b, d):
-        tally(out, part["launches"], part["variants"])
-    return out
 
 
 def build_phase(build, kmod, card):
@@ -2363,10 +1966,7 @@ def main() -> int:
     # 8. the scenario-matrix evaluation harness: the CI gate, then full width
     ev = eval_phase(reset_counts, read_counts, read_all_variants)
 
-    # 9. the serve plane: the graphed slot step, the launcher, the gates
-    sv = serve_phase(reset_counts, read_counts, read_all_variants)
-
-    # 10. times at each path's largest shape and at scale
+    # 9. times at each path's largest shape and at scale
     t_phase = time.perf_counter()
     N, D, K = shape
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
@@ -2410,15 +2010,13 @@ def main() -> int:
          "launches_by_path": {"main_path": launches[name],
                               "stream_path": s_launches[name],
                               "fleet_path": fleet["launches"][name],
-                              "eval_path": ev["launches"][name],
-                              "serve_path": sv["launches"][name]},
+                              "eval_path": ev["launches"][name]},
          "kernels_per_call": at_path[name]["nodes"]["kernels"],
          "memsets_per_call": at_path[name]["nodes"]["memsets"],
          "variants_by_path": {"main_path": variants[name],
                               "stream_path": s_variants[name],
                               "fleet_path": fleet["variants"][name],
-                              "eval_path": ev["variants"][name],
-                              "serve_path": sv["variants"][name]}}
+                              "eval_path": ev["variants"][name]}}
         for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")],
         "smoke_seconds": time.perf_counter() - t_smoke})
     print(card, flush=True)

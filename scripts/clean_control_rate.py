@@ -4,10 +4,10 @@
     PYTHONPATH=src python3 scripts/clean_control_rate.py --mode stream \
         [--cells 20] [--label NAME] [--fixture PATH]
 
-Builds the clean-control cell of `chip_smoke.py`'s eval pass B exactly as
-`eval_pass_b` builds it (the runner's `EvalConfig`, spec, `_FAKE_HLO`,
-injector, `_drive`, `ScenarioRun` and `matrix._row`, around the full-width
-GPT-2 124M step: bf16, batch 8, sequence 128, CUDA-graphed, built once by
+Builds the clean-control cell of `chip_smoke.py`'s eval pass B with the
+functions `eval_pass_b` calls (`runner.scenario_spec`,
+`runner.run_model_cell` and `matrix._row`, around the full-width GPT-2 124M
+step: bf16, batch 8, sequence 128, CUDA-graphed, built once by
 `quickstart._workload` with its set-up calls made before the first cell)
 and runs it ``--cells`` times in ``--mode`` (batch or stream), in this one
 process. Run one process per mode and per condition: the package measured
@@ -174,7 +174,7 @@ def main(argv=None) -> int:
     from repro_torch.diagnosis import Diagnoser
     from repro_torch.eval import matrix, runner
     from repro_torch.models.model import batch_to_device
-    from repro_torch.session import MonitorSpec, Session
+    from repro_torch.session import Session
 
     print(card(), flush=True)
     floor = Diagnoser().min_mean_deficit
@@ -190,14 +190,8 @@ def main(argv=None) -> int:
     scenario = get_scenario("clean_control")
     cells, fixture_out = [], None
     for cell in range(args.cells):
-        eval_start = int(n * scenario.clean_fraction)
-        injector = scenario.injector(n)
-        spec = MonitorSpec(
-            mode=args.mode, probes=list(runner.EVAL_PROBES),
-            probe_options={"device": {"interval": cfg.device_interval}},
-            detector=cfg.detector_spec(holdoff_steps=n - eval_start, seed=0),
-            diagnosis=cfg.diagnosis, governor=False, seed=0)
-        session = Session(spec, device=dev)
+        session = Session(runner.scenario_spec(scenario, args.mode, n, cfg,
+                                               seed=0), device=dev)
         step_s = []
         observe = session.observe_step_fn
 
@@ -213,28 +207,11 @@ def main(argv=None) -> int:
 
         session.observe_step_fn = timed_observe
         steal0 = steal_s()
-        t0 = time.perf_counter()
         with recorded() as got:
-            with session.monitoring():
-                session.collector["collective"].register_compiled(
-                    runner._FAKE_HLO)
-                fn = session.observe_step_fn(
-                    step_fn, sample_args=(state, data.batch(0)), mem_gb=0.5)
-
-                def one_step(s):
-                    nonlocal state
-                    state, _ = fn(state, batch_to_device(data.batch(s), dev))
-
-                step_ts = runner._drive(session, injector, n, eval_start,
-                                        cfg, one_step)
+            run, state, _ = runner.run_model_cell(session, scenario, n, cfg,
+                                                  step_fn, state, data)
         session.observe_step_fn = observe
-        report = session.result()
-        run = runner.ScenarioRun(
-            scenario=scenario, mode=args.mode, config=cfg, n_steps=n,
-            eval_start=eval_start, labels=injector.labels(n),
-            windows=injector.windows(), faults=list(injector.faults),
-            step_ts=step_ts, report=report,
-            wall_s=time.perf_counter() - t0)
+        report = run.report
         row = matrix._row(run)
         ms = 1e3 * np.asarray(step_s)
         slow = np.flatnonzero(ms > np.median(ms) + SLOW_MS)

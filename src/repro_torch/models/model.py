@@ -8,17 +8,12 @@ Python loop over ``layers.{i}`` (the reference stacks layers on a leading
 axis and scans them). The embedding is padded to `padded_vocab` and tied to
 the head; padded logit columns are masked out of the loss. Weights are cast
 to the compute dtype where they are used, so gradients reach the float32
-masters.
-
-Decode (`init_decode_caches`, `decode_step`) is one token a step against
-per-layer KV caches that the step updates in place, with the reference's
-per-slot ``start`` masking for continuous batching. MoE, SSM, hybrid and
-MLA models come with later slices.
+masters. MoE, SSM, hybrid and MLA models, and decode, come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -110,55 +105,6 @@ def forward(params: Params, cfg: ModelConfig, rt: Runtime,
     x = apply_norm(params, "final_norm", cfg, x)
     logits = x @ table.to(x.dtype).T
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
-
-
-# ---------------------------------------------------------------------------
-# Decode
-# ---------------------------------------------------------------------------
-
-Caches = Dict[str, List[attn.Cache]]
-
-
-def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
-                       dtype: torch.dtype = torch.bfloat16,
-                       device: DeviceLike = None) -> Caches:
-    """One KV cache per layer (the reference stacks them on a layer axis)."""
-    check_supported(cfg)
-    dev = resolve_device(device)
-    return {"layers": [attn.init_kv_cache(cfg, batch, max_len, dtype, dev)
-                       for _ in range(cfg.n_layers)]}
-
-
-def _tf_block_decode(params: Params, prefix: str, cfg: ModelConfig,
-                     x: torch.Tensor, cache: attn.Cache,
-                     index: Union[int, torch.Tensor],
-                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = apply_norm(params, f"{prefix}.norm1", cfg, x)
-    x = x + attn.attention_decode(params, f"{prefix}.attn", cfg, h, cache,
-                                  index, start=start)
-    h = apply_norm(params, f"{prefix}.norm2", cfg, x)
-    return x + ffn_mod.ffn_forward(params, f"{prefix}.ffn", cfg, h)
-
-
-def decode_step(params: Params, cfg: ModelConfig, rt: Runtime,
-                batch: Dict[str, torch.Tensor], caches: Caches,
-                index: Union[int, torch.Tensor],
-                start: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Caches]:
-    """One token step. batch: {"tokens": (B, 1)}. Returns (logits
-    (B, 1, V_padded), caches), the caches updated in place.
-
-    ``start``: optional (B,) — each sequence's first valid absolute
-    position. Continuous-batching serving passes it so a request that
-    joined the running batch mid-flight never attends to cache rows written
-    by the slot's previous occupant (see `attention.gqa_decode`)."""
-    table = params["embed.table"]
-    x = F.embedding(batch["tokens"].long(), table.to(rt.compute_dtype))
-    for i in range(cfg.n_layers):
-        x = _tf_block_decode(params, f"layers.{i}", cfg, x,
-                             caches["layers"][i], index, start=start)
-    x = apply_norm(params, "final_norm", cfg, x)
-    return x @ table.to(x.dtype).T, caches
 
 
 # ---------------------------------------------------------------------------

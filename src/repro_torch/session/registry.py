@@ -11,7 +11,8 @@ kind).
 Factories receive ``(options, peers)``: the spec's per-probe option dict and
 the probes already built for the same collector, in spec order. That is how
 the step probe finds the operator/collective/device probes it drives — order
-the dependent probe after its peers in ``MonitorSpec.probes``.
+the dependent probe after its peers in ``MonitorSpec.probes``. The
+reference's ``request`` probe waits for the serve slice (``LATER``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,21 @@ ProbeFactory = Callable[[Dict[str, Any], Dict[str, Probe]], Probe]
 _PROBES: Dict[str, ProbeFactory] = {}
 _DETECTORS: Dict[Tuple[str, str], type] = {}
 _SINKS: Dict[str, type] = {}
+
+# names the reference registers whose modules wait for a later slice of the
+# port: asking for one raises an error naming the slice
+LATER = {
+    "probe": {"request": "serve/ (repro/serve/probe.py)"},
+}
+
+
+def _not_ported(kind: str, name: str) -> None:
+    slice_ = LATER[kind].get(name)
+    if slice_ is not None:
+        raise NotImplementedError(f"{kind} {name!r} is not ported yet: it "
+                                  f"comes with the {slice_} slice of the "
+                                  "port")
+
 
 def _lookup(table: Dict, key, kind: str):
     try:
@@ -53,6 +69,8 @@ def probe_names() -> List[str]:
 
 def build_probe(name: str, options: Optional[Dict[str, Any]] = None,
                 peers: Optional[Dict[str, Probe]] = None) -> Probe:
+    if name not in _PROBES:
+        _not_ported("probe", name)
     factory = _lookup(_PROBES, name, "probe")
     return factory(dict(options or {}), dict(peers or {}))
 
@@ -158,13 +176,3 @@ def _step_probe(opts: Dict[str, Any], peers: Dict[str, Probe]) -> Probe:
                      collective_probe=peers.get("collective"),
                      device_probe=peers.get("device"),
                      peak_flops=float(opts.get("peak_flops", H100_PEAK_FLOPS)))
-
-
-@register_probe("request")
-def _request_probe(opts: Dict[str, Any], peers: Dict[str, Probe]) -> Probe:
-    # lazy: repro_torch.serve pulls in the model stack, which non-serving
-    # sessions should not pay for just by importing the registry
-    from repro_torch.serve.probe import RequestProbe
-
-    return RequestProbe(sample_every=int(opts.get("sample_every", 4)),
-                        slo_buffer=int(opts.get("slo_buffer", 8192)))

@@ -583,58 +583,3 @@ def test_only_the_thread_executor_gets_a_stream_of_its_own(cuda):
         session = Session(spec, device=cuda)
         assert isinstance(session._executor.stream, torch.cuda.Stream) == own
         session._executor.close()
-
-
-def test_graphed_slot_step_matches_eager(cuda):
-    """The continuous engine's slot step replayed as a CUDA graph against
-    the same step run eagerly: one request stream with mid-flight joins and
-    an epoch reset (``max_len`` 40), every step's logits bitwise equal."""
-    from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
-                                   RequestQueue, VirtualClock)
-
-    cfg = reduced(get_arch("gpt2"))
-    rt = Runtime(compute_dtype=torch.bfloat16)
-    params = init_params(cfg, seed=0, device=cuda)
-    runs = []
-    for graphed in (True, False):
-        eng = ContinuousBatchingEngine(cfg, rt, params, slots=4, max_len=40,
-                                       seed=0, clock=VirtualClock(0.02))
-        step, logits = eng._step_fn, []
-        if not graphed:
-            step.WARMUP = 1 << 30
-
-        def kept(*a, step=step, logits=logits):
-            out = step(*a)
-            logits.append(out[0][:, -1].float().clone())
-            return out
-
-        eng._step_fn = kept
-        eng.run(LoadGenerator(rate=0.6, num_requests=16, seed=3,
-                              prompt_len=(3, 8), max_new=(4, 10),
-                              vocab_size=cfg.vocab_size),
-                queue=RequestQueue())
-        runs.append((eng, step, torch.stack(logits)))
-    (g, gstep, lg), (e, _, le) = runs
-    assert gstep.graph is not None and gstep.replays >= 40
-    assert g.scheduler.epoch_resets >= 1
-    assert sum(r.start_index > 0 for r in g.finished) >= 4
-    assert torch.equal(lg, le)
-    assert [r.tokens for r in g.finished] == [r.tokens for r in e.finished]
-
-
-def test_serve_launcher_on_the_card(cuda):
-    """`repro_torch.launch.serve` on the card (reduced model): 16 requests
-    served in batch mode with SLOs, the slot step graphed, the GMM kernels
-    launched and no plain version run."""
-    from repro_torch.launch import serve
-
-    launched, plain = dict(kmod.LAUNCHES), dict(ref.CALLS)
-    args = serve.parser().parse_args(
-        ["--reduced", "--device", "cuda", "--num-requests", "16",
-         "--monitor-spec", '{"mode": "batch", "slo": {"ttft_s": 0.4}}'])
-    out = serve.serve(args)
-    assert out["stats"]["requests"] == 16
-    assert out["stats"]["nonfinite_steps"] == 0
-    assert out["engine"]._step_fn.graph is not None
-    assert kmod.LAUNCHES["gmm_score"] > launched["gmm_score"]
-    assert dict(ref.CALLS) == plain

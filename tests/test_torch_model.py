@@ -170,87 +170,3 @@ def test_loss_decreases_over_training():
         state, m = step_fn(state, data.batch(s))
         losses.append(float(m["loss"]))
     assert np.mean(losses[-8:]) < np.mean(losses[:8]) - 0.2, losses[::8]
-
-
-# -- decode -------------------------------------------------------------------
-# float32: same arithmetic up to summation order (rtol 1e-4, atol 1e-4 on
-# logits of O(1)); bf16 caches and compute: one bf16 rounding of each
-# activation on either side (rtol/atol 2e-2)
-DECODE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
-JDTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TDTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def decode_both(jcfg, tcfg, jp, tp, dtype, tokens, start=None):
-    """Run both packages' decode_step over ``tokens`` (B, T) teacher-forced,
-    each on caches it filled itself; returns the logits (B, T, V) of each."""
-    B, T = tokens.shape
-    jrt = jmodel.Runtime(compute_dtype=JDTYPE[dtype])
-    trt = tmodel.Runtime(TDTYPE[dtype])
-    jc = jmodel.init_decode_caches(jcfg, B, T + 4, dtype=JDTYPE[dtype])
-    tc = tmodel.init_decode_caches(tcfg, B, T + 4, dtype=TDTYPE[dtype],
-                                   device=CPU)
-    jout, tout = [], []
-    for t in range(T):
-        js = None if start is None else jnp.asarray(start, jnp.int32)
-        ts = None if start is None else torch.as_tensor(start)
-        jl, jc = jmodel.decode_step(jp, jcfg, jrt,
-                                    {"tokens": jnp.asarray(tokens[:, t:t + 1])},
-                                    jc, jnp.int32(t), start=js)
-        with torch.no_grad():
-            tl, tc = tmodel.decode_step(
-                tp, tcfg, trt, {"tokens": torch.as_tensor(tokens[:, t:t + 1])},
-                tc, t, start=ts)
-        jout.append(np.asarray(jl.astype(jnp.float32)))
-        tout.append(tl.float().numpy())
-    return np.concatenate(jout, 1), np.concatenate(tout, 1)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_step_matches_jax(dtype):
-    jcfg, tcfg = configs(250)
-    jp, tp = both_params(jcfg, tcfg)
-    tokens = np.random.default_rng(0).integers(1, 250, (3, 10)).astype(np.int32)
-    want, got = decode_both(jcfg, tcfg, jp, tp, dtype, tokens)
-    rtol, atol = DECODE_TOL[dtype]
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
-    if dtype == "float32":  # greedy tokens equal
-        np.testing.assert_array_equal(got[..., :250].argmax(-1),
-                                      want[..., :250].argmax(-1))
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_matches_the_full_forward(dtype):
-    """Teacher-forced decode reproduces the full-sequence forward's logits
-    at every position, to DECODE_TOL (both accumulate scores and values in
-    float32)."""
-    _, tcfg = configs(256)
-    tp = tmodel.init_params(tcfg, seed=1, device=CPU)
-    rt = tmodel.Runtime(TDTYPE[dtype])
-    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (2, 12)))
-    caches = tmodel.init_decode_caches(tcfg, 2, 16, dtype=TDTYPE[dtype],
-                                       device=CPU)
-    with torch.no_grad():
-        full, _ = tmodel.forward(tp, tcfg, rt, {"tokens": tokens})
-        steps = [tmodel.decode_step(tp, tcfg, rt,
-                                    {"tokens": tokens[:, t:t + 1]}, caches,
-                                    t)[0] for t in range(12)]
-    rtol, atol = DECODE_TOL[dtype]
-    np.testing.assert_allclose(torch.cat(steps, 1).float().numpy(),
-                               full.float().numpy(), rtol=rtol, atol=atol)
-
-
-def test_decode_start_mask_matches_jax_and_hides_stale_rows():
-    """Per-slot ``start``: lane 1 starts at position 4, so rows 0-3 of its
-    cache (another occupant's) are masked out — both packages agree, and
-    the lane's logits equal a fresh sequence's."""
-    jcfg, tcfg = configs(256)
-    jp, tp = both_params(jcfg, tcfg)
-    tokens = np.random.default_rng(2).integers(1, 256, (2, 9)).astype(np.int32)
-    start = np.array([0, 4], np.int32)
-    want, got = decode_both(jcfg, tcfg, jp, tp, "float32", tokens, start)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    # the masked lane from position 4 on == a fresh run of tokens[1, 4:]
-    _, fresh = decode_both(jcfg, tcfg, jp, tp, "float32", tokens[1:, 4:])
-    np.testing.assert_allclose(got[1:, 4:], fresh, rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(got[1:, 4:].argmax(-1), fresh.argmax(-1))
