@@ -95,15 +95,15 @@ Phases, each printing one JSON line of its own:
    fault windows. Gates: finite loss, a detection for every warmed layer,
    no lost batch, no GMM kernel launch and no plain GMM call.
 9. ``eval_path``: the scenario-matrix evaluation harness on the card, in
-   two passes, each cell's launches counted from 0. Pass A is the reference
-   CI gate, `repro_torch.launch.evaluate` in-process with ``--scenarios
-   smoke --modes batch,stream --device cuda`` (3 scenarios x 2 modes, 240
-   steps, the synthetic step CUDA-graphed); its exit code must be 0. Pass B
-   runs in a child process (``chip_smoke.py --eval-pass-b OUT``), whose
-   CUDA context has run nothing on a second stream (see
-   `eval_pass_b_isolated`), and composes each cell from the runner's own
-   pieces (its spec, `_FAKE_HLO`, the scenario's injector, `_drive`,
-   `ScenarioRun`, `matrix._row`) around the full-width GPT-2 step, built once and shared: clean_control,
+   two passes, each in a child process of its own (``chip_smoke.py
+   --eval-pass-a OUT``, ``--eval-pass-b OUT``), whose CUDA context has run
+   nothing on a second stream (see `isolated`), each cell's launches
+   counted from 0 there. Pass A is the reference CI gate,
+   `repro_torch.launch.evaluate` with ``--scenarios smoke --modes
+   batch,stream --device cuda`` (3 scenarios x 2 modes, 240 steps, the
+   synthetic step CUDA-graphed); its exit code must be 0. Pass B builds
+   each cell with `runner.scenario_spec` and `runner.run_model_cell`
+   around the full-width GPT-2 step, built once and shared: clean_control,
    runtime_stall, comm_slowdown, degraded_device and memory_leak, batch and
    stream, 240 steps each. One ``eval_cell`` line a cell (F1, FAR, faults
    found, detection ms a window, wall seconds, the monitored step's p50 and
@@ -118,9 +118,36 @@ Phases, each printing one JSON line of its own:
    own gate, `repro/launch/evaluate.py:140-152`). Listed under ``unmet``,
    not enforced: pass B's mean blamed-kind accuracy under the reference's
    0.5.
-10. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
+10. ``serve_path``: the serve plane at full width (GPT-2 124M, bf16), in a
+   child process of its own (``chip_smoke.py --serve-path OUT``, for pass
+   A's reason), in four parts. (a) One request stream through two 4-slot
+   continuous engines, the slot step a CUDA graph in one and eager in the
+   other, with mid-flight joins and an epoch reset (a 40-position budget):
+   every step's logits bitwise equal over >= 48 steps. 32 positions of the
+   graphed slot step's decode, one lane joined at position 8 over its
+   previous occupant's rows, against the full forward: in float32 within
+   1e-4 (tests/test_torch_model.py's tolerance), which a decode with its
+   index one step behind and one with the ``start`` mask dropped must each
+   fail; in bf16 no further from the float32 forward than twice the bf16
+   forward is (``e_dec <= 2 e_fwd``), with the float32 forward's greedy
+   token wherever its top-2 margin exceeds ``2 e_fwd``. Joined requests'
+   tokens equal to the static-batch oracle's.
+   (b) `repro_torch.launch.serve` called in the child, 64 requests in off,
+   batch and stream mode with ``slo`` ttft 0.4 s and queue wait 0.2 s: tok/s,
+   req/s, wait/TTFT/TPOT p50 and p95, the engine step's p50/p90 ms; gates:
+   every request served, no non-finite step, the slot step graphed, batch
+   launched gmm_score and gmm_best and stream gmm_update, specialised only,
+   no plain call, no runtime row in a detection zone. (c)
+   ``--scenarios serve-smoke`` on the card must exit 0 with no SLO-breach
+   incident on the serve clean control and tenant_flood diagnosed, its
+   cells equal to the same run on the CPU (the request plane's virtual
+   clock). (d) serve_latency_spike, serve_runtime_stall
+   and serve_degraded_device, both modes, 240 decode steps: each cell's
+   kernels as pass B's; mean blamed-kind accuracy under 0.5 is listed
+   under ``unmet``.
+11. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
    K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
-11. ``profile``: torch.profiler over 5 full-width training steps, one
+12. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
@@ -135,7 +162,7 @@ device time per wrapper call, the plain version's, its bound, and beside
 them the launch alone, the eager per-call time, the kernels and memsets a
 wrapper call puts on the stream, counted with torch.profiler, which must be
 one kernel and, for the EM kernels, one memset, and the variants each path
-launched, the fleet and eval paths' among them), the card's name and power limit as
+launched, the fleet, eval and serve paths' among them), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero before that line. TF32 is off for matmuls
@@ -1448,6 +1475,17 @@ EVAL_MODES = ("batch", "stream")
 EVAL_KERNELS = {"batch": ("gmm_score", "gmm_best"), "stream": ("gmm_update",)}
 
 
+def tally(totals, launches, variants):
+    """Add one run's launches and variants into ``totals``."""
+    for k, v in launches.items():
+        totals["launches"][k] = totals["launches"].get(k, 0) + v
+    for k, v in variants.items():
+        tv = totals["variants"].setdefault(k, {"specialised": 0,
+                                               "general": 0})
+        for kk in tv:
+            tv[kk] += v[kk]
+
+
 def eval_cell_extras(session, step_s, counts):
     """What a ScenarioRun's report does not keep, read off the cell's
     session: rows each probe emitted, the runtime probe's rows, failed
@@ -1552,8 +1590,9 @@ def check_eval_cell(where, line, n_msgs):
 
 def eval_pass_a(reset_counts, read_counts, read_all_variants):
     """Pass A: the reference's CI gate (`repro_torch.launch.evaluate
-    --scenarios smoke --modes batch,stream`) in-process on the card, each
-    cell's session watched through the runner's train workload. Returns
+    --scenarios smoke --modes batch,stream`) on the card, called in this
+    process (the smoke's child, `isolated`), each cell's session watched
+    through the runner's train workload. Returns
     the pass's line and the cells' lines."""
     from repro_torch.eval import runner
     from repro_torch.launch import evaluate
@@ -1646,66 +1685,63 @@ def eval_pass_b(reset_counts, read_counts, read_all_variants):
             "seconds": time.perf_counter() - t_pass}, lines
 
 
-def eval_pass_b_child(out_path) -> int:
-    """``chip_smoke.py --eval-pass-b OUT``: pass B alone, in a process of
-    its own, its pass and cell lines written to OUT as JSON."""
+def child_main(flag, out_path) -> int:
+    """``chip_smoke.py FLAG OUT``: one of `CHILDREN` alone, in a process of
+    its own, with TF32 off as in `main`; what it returns is written to OUT
+    as JSON."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    res, lines = eval_pass_b(*counters())
+    got = CHILDREN[flag](*counters())
     with open(out_path, "w") as f:  # NumPy scalars as Python numbers
-        json.dump({"res": res, "lines": lines}, f,
-                  default=lambda o: o.item())
+        json.dump(got, f, default=lambda o: o.item())
     return 0
 
 
-def eval_pass_b_isolated(reset_counts, read_counts, read_all_variants):
-    """Pass B in a child process (`eval_pass_b_child`), whose CUDA context
-    has run nothing on a second stream: kernels on a second stream (the
-    thread executor's sweeps in ``session_path``) move a context's graph
-    replays between two levels ~5% apart, and the context may move again
-    at a random later time (scripts/step_levels.py); such a move inside a
-    clean control is a false alarm. The counts are set to 0 and read in the child, around
-    each cell."""
-    out = os.path.join(ROOT, "results", "eval_pass_b.json")
+def isolated(flag, what, timeout=600):
+    """Run ``chip_smoke.py FLAG OUT`` (`child_main`) and return what it
+    wrote, its printed lines passed on. The child's CUDA context has run
+    nothing on a second stream: kernels on a second stream (the thread
+    executor's sweeps in ``session_path`` and ``families_path``) move a
+    context's graph replays between two levels ~5% apart, and the context
+    may move again at a random later time (scripts/step_levels.py); such a
+    move inside a clean control is a false alarm. The counts are set to 0
+    and read in the child."""
+    out = os.path.join(ROOT, "results", f"{flag.strip('-')}.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     if os.path.exists(out):
         os.remove(out)
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--eval-pass-b", out],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        timeout=600)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag,
+                           out], stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, timeout=timeout)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
     if proc.returncode or not os.path.exists(out):
-        raise SmokeFailure(f"eval_path pass B: its process exited "
-                           f"{proc.returncode}: {proc.stderr[-2000:]}")
+        raise SmokeFailure(f"{what}: its process exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
     with open(out) as f:
-        got = json.load(f)
-    return got["res"], got["lines"]
+        return json.load(f)
 
 
-def eval_phase(reset_counts, read_counts, read_all_variants):
+def eval_phase():
     """Phase ``eval_path``: pass A, then pass B (`eval_pass_a`,
-    `eval_pass_b_isolated`), each cell's line printed, then one line a pass; then the
-    gates. Returns the launches and variants summed over every cell."""
+    `eval_pass_b`), each in a process of its own (`isolated`), each cell's
+    line printed, then one line a pass; then the gates. Returns the launches
+    and variants summed over every cell."""
     from repro_torch.core.probes.collective_probe import parse_hlo_collectives
     from repro_torch.eval import matrix, runner
 
     n_msgs = len(parse_hlo_collectives(runner._FAKE_HLO))
     totals = {"launches": {}, "variants": {}}
     passes = {}
-    for name, fn in (("A", eval_pass_a), ("B", eval_pass_b_isolated)):
-        res, lines = fn(reset_counts, read_counts, read_all_variants)
+    for name in ("A", "B"):
+        res, lines = isolated(f"--eval-pass-{name.lower()}",
+                              f"eval_path pass {name}")
         for line in lines:
             emit(line)
-            for k, v in line["launches"].items():
-                totals["launches"][k] = totals["launches"].get(k, 0) + v
-            for k, v in line["variants"].items():
-                tv = totals["variants"].setdefault(
-                    k, {"specialised": 0, "general": 0})
-                for kk in tv:
-                    tv[kk] += v[kk]
+            tally(totals, line["launches"], line["variants"])
         mx = res["matrix"]
         far = matrix.clean_control_far(mx)
         acc = matrix.mean_kind_accuracy(mx)
@@ -1766,6 +1802,432 @@ def eval_phase(reset_counts, read_counts, read_all_variants):
                 f"{l['false_alarm_rate']} not under {matrix.FAR_CEILING}; "
                 f"STEP rows flagged at {l['flagged_steps'].get('step')}")
     return totals
+
+
+# the serve phase: part a's engines, part b's launcher runs, part d's cells
+SERVE_SLO = {"ttft_s": 0.4, "queue_wait_s": 0.2}
+SERVE_REQUESTS = 64
+SERVE_MODES = ("off", "batch", "stream")
+SERVE_KERNELS = {"batch": ("gmm_score", "gmm_best"), "stream": ("gmm_update",)}
+SERVE_D_SCENARIOS = ("serve_latency_spike", "serve_runtime_stall",
+                     "serve_degraded_device")
+SERVE_TOL_F32 = 1e-4  # tests/test_torch_model.py's float32 decode rtol/atol
+DECODE_T, DECODE_JOIN = 32, 8  # part a's decode positions, lane 1's join
+
+
+def graphed_vs_eager(cfg, rt, params):
+    """Part a's first check: one request stream through two 4-slot engines
+    on the card, the slot step replayed as a CUDA graph in one and eager in
+    the other; a ``max_len`` of 40 forces an epoch reset. Every step's
+    logits and every token must be bitwise equal."""
+    import torch
+
+    from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
+                                   RequestQueue, VirtualClock)
+
+    runs = []
+    for graphed in (True, False):
+        eng = ContinuousBatchingEngine(cfg, rt, params, slots=4, max_len=40,
+                                       seed=0, clock=VirtualClock(0.02))
+        step = eng._step_fn  # the engine's GraphedStep
+        if not graphed:
+            step.WARMUP = 1 << 30  # every call eager
+        logits = []
+
+        def kept(*a, step=step, logits=logits):
+            out = step(*a)
+            logits.append(out[0][:, -1].float().clone())
+            return out
+
+        eng._step_fn = kept
+        load = LoadGenerator(rate=0.6, num_requests=16, seed=3,
+                             prompt_len=(3, 8), max_new=(4, 10),
+                             vocab_size=cfg.vocab_size)
+        eng.run(load, queue=RequestQueue())
+        torch.cuda.synchronize()
+        runs.append((eng, step, torch.stack(logits)))
+    (g, gstep, lg), (e, _, le) = runs
+    same = (lg == le).all(dim=(1, 2))
+    return {"steps": int(lg.shape[0]), "captured": gstep.graph is not None,
+            "replays": gstep.replays,
+            "joins": sum(r.start_index > 0 for r in g.finished),
+            "epoch_resets": g.scheduler.epoch_resets,
+            "bitwise_equal_steps": int(same.sum()),
+            "max_abs_diff": float((lg - le).abs().max()),
+            "tokens_equal": [r.tokens for r in g.finished]
+            == [r.tokens for r in e.finished],
+            "nonfinite_steps": g.nonfinite_steps + e.nonfinite_steps}
+
+
+def slot_decode(cfg, params, dtype, tokens, index_of, starts, joins):
+    """Teacher-forced decode of ``tokens`` (lanes, T) through the continuous
+    engine's slot step (`make_slot_step`), replayed as a CUDA graph
+    (`GraphedStep`) over caches of ``dtype`` with ``dtype`` compute: step
+    ``t`` feeds column ``t`` at index ``index_of(t)`` with ``starts[t]`` and
+    ``joins[t]``. Returns the logits (lanes, T, V) in float32 and the
+    step's replay count."""
+    import torch
+
+    from repro_torch.models.model import Runtime, init_decode_caches
+    from repro_torch.serve.continuous import make_slot_step
+    from repro_torch.serve.engine import GraphedStep
+
+    lanes, T = tokens.shape
+    dev = next(iter(params.values())).device
+    caches = init_decode_caches(cfg, lanes, T, dtype=dtype, device=dev)
+    slot = make_slot_step(cfg, Runtime(compute_dtype=dtype))
+    step = GraphedStep(lambda p, c, tok, index, start, join:
+                       slot(p, {"tokens": tok}, c, index, start, join))
+    out = []
+    for t in range(T):
+        logits, caches = step(params, caches, tokens[:, t:t + 1],
+                              index_of(t), starts[t], joins[t])
+        out.append(logits[:, -1].float().clone())
+    return torch.stack(out, 1), step.replays
+
+
+def decode_vs_forward(cfg, params):
+    """Part a's decode checks at full width. Lane 0 decodes one sequence of
+    DECODE_T tokens; lane 1 decodes DECODE_JOIN tokens of another, then a
+    new request joins it at position DECODE_JOIN (``start`` = DECODE_JOIN,
+    the previous occupant's rows left in its cache). The truth is the full
+    forward: of lane 0's whole sequence, of lane 1's first occupant, and of
+    the joined request alone (the model has no positional embedding, so a
+    joined request's logits are a fresh sequence's).
+
+    float32, TF32 off: within SERVE_TOL_F32 of the forward; two planted
+    faults must fail that check (the index one step behind, so each step
+    writes over the previous token's row; the ``start`` mask dropped, so
+    the joined request sees the previous occupant). bf16: with
+    ``e_fwd = max|forward_bf16 - forward_f32|`` and ``e_dec =
+    max|decode_bf16 - forward_f32|``, ``e_dec <= 2 e_fwd``, and the greedy
+    token equal to the float32 forward's wherever its top-2 margin exceeds
+    ``2 e_fwd``. The elementwise 2e-2 reading against the bf16 forward is
+    printed beside, not enforced."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import Runtime, forward
+
+    T, J, V = DECODE_T, DECODE_JOIN, cfg.vocab_size
+    tokens = np.random.default_rng(5).integers(
+        0, V, (2, T)).astype(np.int32)
+    starts = [np.array([0, 0 if t < J else J], np.int32) for t in range(T)]
+    joins = [np.array([False, t == J]) for t in range(T)]
+
+    def truth(dtype):
+        rt = Runtime(compute_dtype=dtype)
+        tok = torch.as_tensor(tokens, device=next(iter(params.values()))
+                              .device)
+        with torch.no_grad():
+            whole, _ = forward(params, cfg, rt, {"tokens": tok})
+            joined, _ = forward(params, cfg, rt, {"tokens": tok[1:, J:]})
+        return torch.stack([whole[0], torch.cat([whole[1, :J], joined[0]])]
+                           )[..., :V].float()
+
+    def decode(dtype, index_of=lambda t: t, starts=starts):
+        got, replays = slot_decode(cfg, params, dtype, tokens, index_of,
+                                   starts, joins)
+        return got[..., :V], replays
+
+    def within(got, want, tol):
+        return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+    want32 = truth(torch.float32)
+    got32, replays = decode(torch.float32)
+    plants = {
+        "index_one_behind": decode(torch.float32,
+                                   index_of=lambda t: max(t - 1, 0))[0],
+        "start_mask_dropped": decode(
+            torch.float32, starts=[np.zeros(2, np.int32)] * T)[0]}
+    f32 = {"max_abs_err": float((got32 - want32).abs().max()),
+           "within_tol": within(got32, want32, SERVE_TOL_F32),
+           "tol": SERVE_TOL_F32, "graph_replays": replays,
+           "plants": {name: {"max_abs_err": float((g - want32).abs().max()),
+                             "within_tol": within(g, want32, SERVE_TOL_F32)}
+                      for name, g in plants.items()}}
+    fwd16 = truth(torch.bfloat16)
+    got16, _ = decode(torch.bfloat16)
+    e_fwd = float((fwd16 - want32).abs().max())
+    e_dec = float((got16 - want32).abs().max())
+    top2 = want32.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * e_fwd
+    greedy_diff = int(((got16.argmax(-1) != want32.argmax(-1)) & sure).sum())
+    bf16 = {"e_fwd": e_fwd, "e_dec": e_dec, "within_2_e_fwd":
+            e_dec <= 2 * e_fwd, "positions_with_margin": int(sure.sum()),
+            "greedy_mismatches": greedy_diff,
+            "max_abs_logit": float(want32.abs().max()),
+            "elementwise_2e-2_vs_bf16_forward": within(got16, fwd16, 2e-2)}
+    return {"lanes": 2, "positions": T, "join_at": J, "float32": f32,
+            "bf16": bf16}
+
+
+def join_oracle(cfg, rt, params):
+    """Part a's third check: `test_join_evict_matches_static_batch_oracle`'s
+    construction at full width on the card — six requests through a 2-slot
+    engine (joins into recycled lanes), each alone through the fixed-batch
+    engine; the tokens must match."""
+    import numpy as np
+
+    from repro_torch.serve import (ContinuousBatchingEngine, Request,
+                                   RequestQueue, ServeEngine, VirtualClock)
+
+    rng = np.random.default_rng(11)
+    reqs = [Request(req_id=i, tenant=0,
+                    prompt=rng.integers(1, cfg.vocab_size, size=int(
+                        rng.integers(3, 7))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(4, 7)), enqueue_ts=0.0)
+            for i in range(6)]
+    eng = ContinuousBatchingEngine(cfg, rt, params, slots=2, max_len=256,
+                                   seed=0, clock=VirtualClock(0.02))
+    queue = RequestQueue()
+    for r in reqs:
+        queue.push(r)
+    s = 0
+    while len(queue) or eng.n_active:
+        eng.tick(s, None, queue, None)
+        s += 1
+    oracle = ServeEngine(cfg=cfg, rt=rt, params=params, batch_size=1,
+                         max_len=64)
+    compared = mismatched = 0
+    for r in eng.finished:
+        want = oracle.generate(r.prompt[None, :], r.max_new_tokens)
+        want = want[0, r.prompt_len:]
+        compared += len(want)
+        mismatched += int((np.asarray(r.tokens) != want).sum())
+    return {"requests": len(eng.finished),
+            "joined_mid_flight": sum(r.start_index > 0
+                                     for r in eng.finished),
+            "compared": compared, "mismatched": mismatched}
+
+
+def serve_part_a():
+    """Part a: the slot step's CUDA graph, decode against the forward (float32
+    and bf16), and mid-flight joins against the static-batch oracle, at full
+    width (GPT-2 124M; bf16 but for the float32 check)."""
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models.model import Runtime, init_params
+
+    t0 = time.perf_counter()
+    cfg = get_arch("gpt2")
+    rt = Runtime(compute_dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda")
+    line = {"phase": "serve_path", "part": "a", "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "graph": graphed_vs_eager(cfg, rt, params),
+            "decode_vs_forward": decode_vs_forward(cfg, params),
+            "join_oracle": join_oracle(cfg, rt, params),
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    g, d, j = line["graph"], line["decode_vs_forward"], line["join_oracle"]
+    if not (g["captured"] and g["steps"] >= 48 and g["joins"]
+            and g["epoch_resets"]):
+        raise SmokeFailure(f"serve_path a: the graph run is too short or "
+                           f"lacks joins or an epoch reset: {g}")
+    if g["bitwise_equal_steps"] != g["steps"] or not g["tokens_equal"] \
+            or g["nonfinite_steps"]:
+        raise SmokeFailure(f"serve_path a: the graphed slot step differs "
+                           f"from the eager one: {g}")
+    f32, b16 = d["float32"], d["bf16"]
+    if not f32["within_tol"] or not f32["graph_replays"]:
+        raise SmokeFailure(f"serve_path a: float32 decode against the "
+                           f"forward: {f32}")
+    passed = [k for k, v in f32["plants"].items() if v["within_tol"]]
+    if passed:
+        raise SmokeFailure(f"serve_path a: planted decode faults {passed} "
+                           f"pass the float32 check: {f32['plants']}")
+    if not b16["within_2_e_fwd"] or b16["greedy_mismatches"]:
+        raise SmokeFailure(f"serve_path a: bf16 decode against the float32 "
+                           f"forward: {b16}")
+    if j["mismatched"] or not j["joined_mid_flight"]:
+        raise SmokeFailure(f"serve_path a: join oracle: {j}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def serve_part_b(serve, reset_counts, read_counts, read_all_variants):
+    """Part b: `repro_torch.launch.serve` in-process at full width, 64
+    requests in each of SERVE_MODES with SERVE_SLO. Returns the launches
+    and variants summed over the monitored modes."""
+    import torch
+
+    t0 = time.perf_counter()
+    line = {"phase": "serve_path", "part": "b", "slo": SERVE_SLO,
+            "requests": SERVE_REQUESTS, "modes": {}}
+    totals = {"launches": {}, "variants": {}}
+    with runtime_leaks() as leaks:
+        for mode in SERVE_MODES:
+            t_mode = time.perf_counter()
+            args = serve.parser().parse_args(
+                ["--device", "cuda", "--num-requests", str(SERVE_REQUESTS),
+                 "--monitor-spec", json.dumps({"mode": mode,
+                                               "slo": SERVE_SLO})])
+            reset_counts()
+            out = serve.serve(args)
+            launches, plain = read_counts()
+            variants = read_all_variants()
+            res = {**out["stats"],
+                   "graphed": out["engine"]._step_fn.graph is not None,
+                   "seconds": time.perf_counter() - t_mode}
+            report = out["report"]
+            if report is not None:
+                res.update(
+                    incidents=[{"kind": i.kind, "suspect":
+                                i.suspect_layer.value,
+                                "severity": i.severity}
+                               for i in report.incidents],
+                    diagnoses=[d.fault_kind for d in report.diagnoses],
+                    rows_per_layer={k: v.events
+                                    for k, v in report.layers.items()},
+                    serve_stats=out["session"].serve_stats(),
+                    runtime_rows=out["session"].collector["xla"].emitted,
+                    launches=launches, plain_calls=plain, variants=variants)
+                tally(totals, launches, variants)
+            line["modes"][mode] = res
+            del out, report
+            torch.cuda.empty_cache()
+    line["runtime_rows_in_zone"] = leaks["in_zone"]
+    line["runtime_rows_on_worker"] = leaks["on_worker"]
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    for mode, res in line["modes"].items():
+        if res["requests"] != SERVE_REQUESTS or res["nonfinite_steps"] \
+                or not res["graphed"]:
+            raise SmokeFailure(f"serve_path b {mode}: {res['requests']} "
+                               f"requests, {res['nonfinite_steps']} "
+                               f"non-finite steps, graphed "
+                               f"{res['graphed']}")
+        if mode == "off":
+            continue
+        if not all(res["launches"][k] for k in SERVE_KERNELS[mode]):
+            raise SmokeFailure(f"serve_path b {mode}: a kernel was not "
+                               f"launched: {res['launches']}")
+        if any(v["general"] for v in res["variants"].values()) \
+                or any(res["plain_calls"].values()):
+            raise SmokeFailure(f"serve_path b {mode}: a general kernel or a "
+                               f"plain version ran: {res['variants']}, "
+                               f"{res['plain_calls']}")
+    if line["runtime_rows_in_zone"] or line["runtime_rows_on_worker"]:
+        raise SmokeFailure(f"serve_path b: runtime-probe rows inside a "
+                           f"detection zone: {leaks}")
+    return totals
+
+
+def serve_part_c():
+    """Part c: `repro_torch.launch.evaluate --scenarios serve-smoke` on the
+    card, its cells held against the same run on the CPU (the request
+    plane runs on a virtual clock: every SLO number must agree)."""
+    from repro_torch.eval import matrix
+    from repro_torch.launch import evaluate
+
+    t0 = time.perf_counter()
+    rows = {}
+    rcs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(ROOT, "results", f"eval_serve_{dev}")
+        rcs[dev] = evaluate.main(["--scenarios", "serve-smoke", "--device",
+                                  dev, "--out", out])
+        with open(os.path.join(out, "scenario_matrix.json")) as f:
+            rows[dev] = json.load(f)["rows"]
+    cells = [{"scenario": r["scenario"], "mode": r["mode"], "slo": r["slo"],
+              "diagnoses": r["diagnosis"]["kinds"],
+              "equal_to_cpu": (r["slo"], r["diagnosis"]["kinds"])
+              == (c["slo"], c["diagnosis"]["kinds"])}
+             for r, c in zip(rows["cuda"], rows["cpu"])]
+    clean = matrix.serve_clean_breaches({"rows": rows["cuda"]})
+    line = {"phase": "serve_path", "part": "c", "rc": rcs["cuda"],
+            "rc_cpu": rcs["cpu"], "clean_breach_incidents": clean,
+            "cells": cells, "seconds": time.perf_counter() - t0}
+    emit(line)
+    if rcs["cuda"] or clean != 0:
+        raise SmokeFailure(f"serve_path c: serve-smoke exited {rcs['cuda']}"
+                           f" with {clean} breach incidents on the clean "
+                           "control")
+    flood = [c for c in cells if c["scenario"] == "serve_tenant_flood"]
+    if not all("tenant_flood" in c["diagnoses"] for c in flood):
+        raise SmokeFailure(f"serve_path c: tenant_flood not diagnosed: "
+                           f"{flood}")
+    if not all(c["equal_to_cpu"] for c in cells):
+        raise SmokeFailure(f"serve_path c: the card's cells differ from the "
+                           f"CPU's: {cells}")
+
+
+def serve_part_d(reset_counts, read_counts, read_all_variants):
+    """Part d: the serve GMM scenarios at full width, 240 steps, both
+    modes, through `run_scenario`; each cell's line, then the part's.
+    Returns the launches and variants summed over the cells."""
+    from repro_torch.core.chaos import get_scenario
+    from repro_torch.eval import matrix, runner
+
+    t0 = time.perf_counter()
+    totals = {"launches": {}, "variants": {}}
+    rows = []
+    with runtime_leaks() as leaks:
+        for name in SERVE_D_SCENARIOS:
+            for mode in EVAL_MODES:
+                reset_counts()
+                run = runner.run_scenario(get_scenario(name), mode,
+                                          n_steps=EVAL_STEPS, device="cuda")
+                launches, plain = read_counts()
+                variants = read_all_variants()
+                row = matrix._row(run)
+                rows.append(row)
+                m = row["metrics"]
+                emit({"phase": "serve_cell", "scenario": name, "mode": mode,
+                      "f1": m["f1"], "false_alarm_rate":
+                      m["false_alarm_rate"],
+                      "faults": f"{m['faults_detected']}/"
+                                f"{m['faults_total']}",
+                      "diagnoses": row["diagnosis"]["kinds"],
+                      "kind_accuracy": row["diagnosis"]["kind_accuracy"],
+                      "layer_rows": {k: v["events"]
+                                     for k, v in row["layers"].items()},
+                      "wall_s": row["wall_s"], "launches": launches,
+                      "plain_calls": plain, "variants": variants})
+                if not all(launches[k] for k in EVAL_KERNELS[mode]) \
+                        or any(plain.values()) \
+                        or any(v["general"] for v in variants.values()):
+                    raise SmokeFailure(
+                        f"serve_path d {name} {mode}: kernels {launches}, "
+                        f"plain {plain}, variants {variants}")
+                tally(totals, launches, variants)
+                del run
+    acc = matrix.mean_kind_accuracy({"rows": rows})
+    line = {"phase": "serve_path", "part": "d", "cells": len(rows),
+            "steps": EVAL_STEPS, "mean_kind_accuracy": acc,
+            "runtime_rows_in_zone": leaks["in_zone"],
+            "runtime_rows_on_worker": leaks["on_worker"],
+            "seconds": time.perf_counter() - t0, "unmet": []}
+    if acc is not None and acc < 0.5:
+        line["unmet"].append(f"mean blamed-kind accuracy {acc} under the "
+                             "reference's --min-kind-acc 0.5 (ROADMAP §3)")
+    emit(line)
+    if leaks["in_zone"] or leaks["on_worker"]:
+        raise SmokeFailure(f"serve_path d: runtime-probe rows inside a "
+                           f"detection zone: {leaks}")
+    return totals
+
+
+def serve_phase(reset_counts, read_counts, read_all_variants):
+    """Phase ``serve_path``: parts a-d. Returns the launches and variants
+    of the monitored runs (parts b and d) summed."""
+    from repro_torch.launch import serve
+
+    serve_part_a()
+    b = serve_part_b(serve, reset_counts, read_counts, read_all_variants)
+    serve_part_c()
+    d = serve_part_d(reset_counts, read_counts, read_all_variants)
+    out = {"launches": {}, "variants": {}}
+    for part in (b, d):
+        tally(out, part["launches"], part["variants"])
+    return out
+
+
+# what ``chip_smoke.py FLAG OUT`` runs in a process of its own (`isolated`)
+CHILDREN = {"--eval-pass-a": eval_pass_a, "--eval-pass-b": eval_pass_b,
+            "--serve-path": serve_phase}
 
 
 def build_phase(build, kmod, card):
@@ -1964,9 +2426,12 @@ def main() -> int:
                    session["modes"]["off"]["steady_steps_per_s"])
 
     # 8. the scenario-matrix evaluation harness: the CI gate, then full width
-    ev = eval_phase(reset_counts, read_counts, read_all_variants)
+    ev = eval_phase()
 
-    # 9. times at each path's largest shape and at scale
+    # 9. the serve plane: the graphed slot step, the launcher, the gates
+    sv = isolated("--serve-path", "serve_path")
+
+    # 10. times at each path's largest shape and at scale
     t_phase = time.perf_counter()
     N, D, K = shape
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
@@ -2010,13 +2475,15 @@ def main() -> int:
          "launches_by_path": {"main_path": launches[name],
                               "stream_path": s_launches[name],
                               "fleet_path": fleet["launches"][name],
-                              "eval_path": ev["launches"][name]},
+                              "eval_path": ev["launches"][name],
+                              "serve_path": sv["launches"][name]},
          "kernels_per_call": at_path[name]["nodes"]["kernels"],
          "memsets_per_call": at_path[name]["nodes"]["memsets"],
          "variants_by_path": {"main_path": variants[name],
                               "stream_path": s_variants[name],
                               "fleet_path": fleet["variants"][name],
-                              "eval_path": ev["variants"][name]}}
+                              "eval_path": ev["variants"][name],
+                              "serve_path": sv["variants"][name]}}
         for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")],
         "smoke_seconds": time.perf_counter() - t_smoke})
     print(card, flush=True)
@@ -2028,8 +2495,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        if sys.argv[1:2] == ["--eval-pass-b"]:
-            sys.exit(eval_pass_b_child(sys.argv[2]))
+        if sys.argv[1:2] and sys.argv[1] in CHILDREN:
+            sys.exit(child_main(sys.argv[1], sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)

@@ -20,6 +20,13 @@ from repro_torch.core.probes.base import Probe
 from repro_torch.core.probes.device_probe import H100_PEAK_FLOPS
 
 
+# steps that last this long or more wait on a blocking CUDA event, shorter
+# ones spin (`StepProbe.wrap`): on the H100 a spinning wait took the 0.7 ms
+# synthetic eval step's p50 from 0.75 to 0.54 ms, and a blocking one cut
+# the 10 ms GPT-2 step's multi-ms stalls
+SPIN_BELOW_S = 0.002
+
+
 class StepProbe(Probe):
     name = "step"
 
@@ -39,7 +46,10 @@ class StepProbe(Probe):
         # chaos hooks per monitored layer (seconds added to that layer's view):
         self.extra_xla = 0.0   # DCGM kernel-timeout analogue
         self.extra_op = 0.0    # pytorchfi operator-delay analogue
-        self._done = None  # the blocking CUDA event each step waits on
+        # the CUDA events a step waits on, by blocking (see `wrap`), and the
+        # last step's measured execution time, which picks between them
+        self._done = {}
+        self._last_exec = float("inf")
 
     def _attach(self) -> None:
         pass
@@ -63,16 +73,22 @@ class StepProbe(Probe):
             # PyTorch returns before the card finishes: wait for the step's
             # kernels (its stream, not the device: the detection plane's
             # sweeps run on a stream of their own) so the duration is the
-            # step's, not its enqueue time. The wait is on a blocking event:
-            # the thread sleeps until the card signals, where a stream
-            # synchronisation spins on one core, and a spinning thread is
-            # late whenever that core is taken from it while the step ends
+            # step's, not its enqueue time. A step that took SPIN_BELOW_S or
+            # more waits on a blocking event: the thread sleeps until the
+            # card signals, where a spinning thread is late whenever its
+            # core is taken from it while the step ends. A shorter one
+            # spins: waking a sleeping thread costs a short step a large
+            # share of its time, and the wake-up's spread with it
             if torch.cuda.is_initialized():
-                if self._done is None:
-                    self._done = torch.cuda.Event(blocking=True)
-                self._done.record()
-                self._done.synchronize()
+                blocking = self._last_exec >= SPIN_BELOW_S
+                done = self._done.get(blocking)
+                if done is None:
+                    done = self._done[blocking] = torch.cuda.Event(
+                        blocking=blocking)
+                done.record()
+                done.synchronize()
             exec_dur = self.now() - t0
+            self._last_exec = exec_dur
             if self.extra_latency:  # python-layer fault: real host-side stall
                 time.sleep(self.extra_latency)
             dur = (self.now() - t0) + self.extra_xla + self.extra_op

@@ -18,10 +18,11 @@ replayed (`GraphedSynthStep`), as the reference jits it into one executable:
 eager, its launches would be paid for on the host, and the step time would
 be the host's. On the CPU it runs eagerly.
 
-The ``serve`` (the reduced-GPT-2 decode loop) and ``request`` (the
-continuous-batching engine judged by the SLO plane) workloads are not ported
-yet: they come with the serve/ slice of the port, and a scenario that runs
-them raises `NotImplementedError`.
+The ``serve`` workload is the GPT-2 decode loop observed the same way, and
+the ``request`` workload the continuous-batching engine on a virtual clock,
+judged by the SLO plane. On the CPU both run the reduced GPT-2 in float32,
+as the reference does; on a CUDA device the full-width GPT-2 124M in bf16,
+its decode step replayed as a CUDA graph (`repro_torch.serve.GraphedStep`).
 
 The run's first ``clean_fraction`` steps are fault-free by scenario
 construction; stream mode warms up there, batch mode gets a matching holdoff
@@ -31,6 +32,7 @@ on the live region after it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -230,20 +232,47 @@ class GraphedSynthStep:
         return self._out
 
 
-def _later_slice(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it comes with the serve/ slice of the "
-        "port (repro/serve/, the decode engine and the request plane)")
+@functools.lru_cache(maxsize=2)
+def _model_parts(device_type: str):
+    """The serve and request workloads' model, built once per process and
+    device type: the reduced GPT-2 in float32 on the CPU (the reference's),
+    the full-width GPT-2 124M in bf16 on a CUDA device; weights from seed
+    0."""
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models.model import Runtime, init_params
+
+    cfg = get_arch("gpt2")
+    if device_type == "cpu":
+        cfg, dtype = reduced(cfg), torch.float32
+    else:
+        dtype = torch.bfloat16
+    params = init_params(cfg, seed=0, device=device_type)
+    return cfg, Runtime(compute_dtype=dtype), params
 
 
-def _serve_parts():
-    """The reference's reduced-GPT-2 decode-step factory."""
-    _later_slice("the serve workload (the decode loop)")
+def _serve_parts(device: DeviceLike = None):
+    """The decode-step workload: (cfg, params, step, make_caches), the step
+    ``(params, {"tokens": host (B, 1)}, caches, index) -> (logits,
+    caches)`` replayed as a CUDA graph on the card."""
+    from repro_torch.models.model import init_decode_caches
+    from repro_torch.serve.engine import GraphedStep, make_decode_step
+
+    dev = resolve_device(device)
+    cfg, rt, params = _model_parts(dev.type)
+    decode = make_decode_step(cfg, rt)
+    graphed = GraphedStep(lambda p, caches, tokens, index:
+                          decode(p, {"tokens": tokens}, caches, index))
+
+    def step(p, batch, caches, index):
+        return graphed(p, caches, batch["tokens"], index)
+
+    return cfg, params, step, functools.partial(init_decode_caches, cfg,
+                                                device=dev)
 
 
-def _request_parts():
-    """The reference's continuous-batching workload's config and params."""
-    _later_slice("the request workload (the continuous-batching engine)")
+def _request_parts(device: DeviceLike = None):
+    """The continuous-batching workload's (cfg, rt, params)."""
+    return _model_parts(resolve_device(device).type)
 
 
 def run_scenario(scenario: Scenario, mode: str,
@@ -256,18 +285,16 @@ def run_scenario(scenario: Scenario, mode: str,
     cfg = config or EvalConfig()
     if mode not in ("batch", "stream"):
         raise ValueError(f"mode must be batch|stream, got {mode!r}")
-    if scenario.workload != "train":
-        _later_slice(f"scenario {scenario.name!r} (the "
-                     f"{scenario.workload} workload)")
     dev = resolve_device(device)
     eval_start = int(n_steps * scenario.clean_fraction)
     injector = scenario.injector(n_steps)
     labels = injector.labels(n_steps)
     session = Session(scenario_spec(scenario, mode, n_steps, cfg, seed),
                       device=dev)
+    runner = {"train": _run_train_steps, "serve": _run_serve_steps,
+              "request": _run_request_steps}[scenario.workload]
     t0 = time.perf_counter()
-    step_ts = _run_train_steps(session, injector, n_steps, eval_start, cfg,
-                               seed)
+    step_ts = runner(session, injector, n_steps, eval_start, cfg, seed)
     wall = time.perf_counter() - t0
     return ScenarioRun(
         scenario=scenario, mode=mode, config=cfg, n_steps=n_steps,
@@ -279,7 +306,12 @@ def run_scenario(scenario: Scenario, mode: str,
 def scenario_spec(scenario: Scenario, mode: str, n_steps: int,
                   cfg: EvalConfig, seed: int = 0) -> MonitorSpec:
     """A cell's spec: the eval probes, the device probe's interval, and the
-    detector held off over the scenario's clean prefix."""
+    detector held off over the scenario's clean prefix. A request cell is
+    SLO-thresholded, not GMM-modelled: only the request probe attaches and
+    the detector spec is irrelevant."""
+    if scenario.workload == "request":
+        return MonitorSpec(mode=mode, probes=["request"],
+                           slo=dict(SERVE_SLO), governor=False, seed=seed)
     eval_start = int(n_steps * scenario.clean_fraction)
     return MonitorSpec(
         mode=mode, probes=list(EVAL_PROBES),
@@ -372,12 +404,53 @@ def _run_train_steps(session: Session, injector, n_steps: int,
 def _run_serve_steps(session: Session, injector, n_steps: int,
                      eval_start: int, cfg: EvalConfig, seed: int
                      ) -> np.ndarray:
-    """The reference's decode-loop workload."""
-    _later_slice("the serve workload (the decode loop)")
+    """The decode loop at batch 2: each step's greedy token fed back."""
+    model_cfg, params, step, make_caches = _serve_parts(session.device)
+    batch_size = 2
+    caches = make_caches(batch_size, n_steps + 1)
+    tok0 = np.ones((batch_size, 1), np.int32)
+    # the first calls outside the probes (the reference compiles there; the
+    # graph is captured on the third, over these caches: rows they leave
+    # behind are rewritten at their position before it turns valid)
+    for i in range(3):
+        step(params, {"tokens": tok0}, caches, i)
+    if session.device.type == "cuda":
+        torch.cuda.synchronize(session.device)
+    state = {"tok": tok0, "caches": caches}
+    with session.monitoring():
+        fn = session.observe_step_fn(
+            step, sample_args=(params, {"tokens": tok0}, caches, 0),
+            mem_gb=0.5)
+
+        def one_step(s):
+            logits, state["caches"] = fn(params, {"tokens": state["tok"]},
+                                         state["caches"], s)
+            nxt = logits[:, -1, : model_cfg.vocab_size].argmax(-1)
+            state["tok"] = nxt.to(torch.int32).cpu().numpy()[:, None]
+
+        return _drive(session, injector, n_steps, eval_start, cfg, one_step)
 
 
 def _run_request_steps(session: Session, injector, n_steps: int,
                        eval_start: int, cfg: EvalConfig, seed: int
                        ) -> np.ndarray:
-    """The reference's continuous-batching workload under the SLO plane."""
-    _later_slice("the request workload (the continuous-batching engine)")
+    """Continuous-batching engine under deterministic load; serve faults
+    perturb the arrival mix via ``injector.serve_faults``. The engine runs
+    a `VirtualClock`, so every latency is a pure function of scheduling and
+    the cell is reproducible bit-for-bit from ``seed``."""
+    from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
+                                   VirtualClock)
+
+    model_cfg, rt, params = _request_parts(session.device)
+    eng = ContinuousBatchingEngine(
+        model_cfg, rt, params, slots=SERVE_SLOTS, max_len=n_steps + 96,
+        seed=seed, clock=VirtualClock(SERVE_DT), dtype=torch.float32)
+    load = LoadGenerator(rate=SERVE_LOAD["rate"], seed=seed,
+                         prompt_len=SERVE_LOAD["prompt_len"],
+                         max_new=SERVE_LOAD["max_new"],
+                         vocab_size=model_cfg.vocab_size)
+    with session.monitoring():
+        eng.run(load, n_steps=n_steps,
+                faults_for_step=injector.serve_faults,
+                on_step=lambda s: session.on_step(s), drain=False)
+    return np.arange(n_steps, dtype=np.float64) * SERVE_DT

@@ -13,10 +13,9 @@ blamed-kind accuracy over the faulted cells falls below ``--min-kind-acc``
 regression gate. See docs/evaluation.md and docs/diagnosis.md.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
-raises. The serve and request scenarios are not ported yet (they come with
-the serve/ slice): ``--scenarios serve-smoke``, or naming one of them,
-exits 2; ``--scenarios all`` runs every train scenario and says on stderr
-which it left out.
+raises. ``--scenarios serve-smoke`` runs the request plane's gate: the
+serve clean control must close zero SLO-breach incidents, and every
+faulted serve cell must raise one (``--min-breach-recall``).
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ import argparse
 import sys
 
 from repro_torch.core.chaos import (SERVE_SMOKE_SCENARIOS, SMOKE_SCENARIOS,
-                                    get_scenario, scenario_names)
+                                    scenario_names)
 from repro_torch.eval.matrix import (BAKEOFF_CONFIGS, CONFIG_GRID,
                                      FAR_CEILING, MODES,
                                      clean_control_diagnoses,
@@ -33,27 +32,13 @@ from repro_torch.eval.matrix import (BAKEOFF_CONFIGS, CONFIG_GRID,
                                      save_matrix, serve_breach_recall,
                                      serve_clean_breaches)
 
-SERVE_SLICE = ("it comes with the serve/ slice of the port (repro/serve/, "
-               "the decode engine and the request plane)")
-
-
-def _not_train(names: list) -> list:
-    return [n for n in names if get_scenario(n).workload != "train"]
-
-
-def _resolve_scenarios(ap: argparse.ArgumentParser, arg: str) -> list:
+def _resolve_scenarios(arg: str) -> list:
     if arg == "all":
-        names = scenario_names()
-        left = _not_train(names)
-        if left:
-            print(f"[eval] --scenarios all leaves out the serve and request "
-                  f"scenario(s) {left}: {SERVE_SLICE}", file=sys.stderr)
-        return [n for n in names if n not in left]
+        return scenario_names()
     if arg == "smoke":
         return list(SMOKE_SCENARIOS)
     if arg == "serve-smoke":
-        ap.error(f"--scenarios serve-smoke ({', '.join(SERVE_SMOKE_SCENARIOS)})"
-                 f" is not ported yet: {SERVE_SLICE}")
+        return list(SERVE_SMOKE_SCENARIOS)
     names = [s for s in arg.split(",") if s]
     known = set(scenario_names())
     unknown = sorted(set(names) - known)
@@ -61,10 +46,6 @@ def _resolve_scenarios(ap: argparse.ArgumentParser, arg: str) -> list:
         raise SystemExit(f"unknown scenario(s) {unknown}; "
                          f"available: {', '.join(sorted(known))} "
                          "(or 'all' / 'smoke')")
-    left = _not_train(names)
-    if left:
-        ap.error(f"scenario(s) {left} run the serve or request workload, "
-                 f"which is not ported yet: {SERVE_SLICE}")
     return names
 
 
@@ -115,7 +96,7 @@ def main(argv=None) -> int:
                          "achievable; set 0 to disable)")
     args = ap.parse_args(argv)
 
-    scenarios = _resolve_scenarios(ap, args.scenarios)
+    scenarios = _resolve_scenarios(args.scenarios)
     modes = [m for m in args.modes.split(",") if m]
     bad_modes = sorted(set(modes) - set(MODES))
     if bad_modes:
@@ -137,6 +118,16 @@ def main(argv=None) -> int:
         dg = row.get("diagnosis", {})
         acc = dg.get("kind_accuracy")
         acc_s = f"{100 * acc:5.1f}%" if acc is not None else "    —"
+        if "slo" in row:
+            s = row["slo"]
+            print(f"[eval] {row['scenario']:<22} {row['mode']:<6} "
+                  f"{row['config']:<14} "
+                  f"breach_inc={s['incidents_total']} "
+                  f"windows={s['windows_detected']}/{s['windows_total']} "
+                  f"spurious={s['spurious']} "
+                  f"diag={dg.get('diagnoses_total', 0)} kind_acc={acc_s} "
+                  f"({row['wall_s']:.1f}s)", flush=True)
+            return
         print(f"[eval] {row['scenario']:<22} {row['mode']:<6} "
               f"{row['config']:<14} F1={100 * m['f1']:5.1f}% "
               f"FAR={100 * m['false_alarm_rate']:5.1f}% "

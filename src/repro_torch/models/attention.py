@@ -1,15 +1,21 @@
-"""Full-sequence GQA attention — the ``gqa_forward`` of
-`repro/models/attention.py`.
+"""GQA attention — ``gqa_forward``, ``init_kv_cache`` and ``gqa_decode`` /
+``attention_decode`` of `repro/models/attention.py`.
 
-The reference computes it blockwise with an online softmax and a custom VJP
-in plain jnp; no Pallas kernel stands behind it, so the port uses plain
-PyTorch math and autograd. At the sequence lengths of the monitored workload
-(hundreds of tokens) the (S, S) score matrix is small. Scores and softmax
-run in float32; the value product runs in the compute dtype.
+The reference computes the full-sequence forward blockwise with an online
+softmax and a custom VJP in plain jnp, and its decode step in plain jnp too;
+no Pallas kernel stands behind either, so the port uses plain PyTorch math
+and autograd. At the sequence lengths of the monitored workload (hundreds of
+tokens) the (S, S) score matrix is small. Scores, softmax and the value
+product accumulate in float32 in both, as the reference's do.
+
+Decode writes the step's K/V rows into the cache in place (``index_copy_``
+at a device-side ``index``), so one decode step can be captured in a CUDA
+graph over static cache buffers and replayed at every position.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -17,6 +23,51 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.layers import Params
 
 NEG_INF = -1e30
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over (n, m, k) x (n, k, p) bf16 (or fp16) operands, summed
+    and returned in float32: on a CUDA device with the operands as they are
+    (`aten::bmm.dtype`, on the tensor cores), elsewhere upcast."""
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a.to(dtype) @ b.to(dtype)`` with a float32 result, differentiable:
+    autograd has no formula for `aten::bmm.dtype`, so the backward runs the
+    same product, the incoming gradient cast to ``dtype`` as the reference's
+    VJP casts ``ds`` to the operands' dtype (`repro/models/attention.py`
+    ``_flash_vjp_bwd``), and each gradient returned in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b, dtype):
+        a16, b16 = a.to(dtype), b.to(dtype)
+        ctx.save_for_backward(a16, b16)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return _mm_f32(a16, b16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        g16 = g.to(a16.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _mm_f32(g16, b16.transpose(1, 2)).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            gb = _mm_f32(a16.transpose(1, 2), g16).to(ctx.dtypes[1])
+        return ga, gb, None
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Batched ``a @ b`` (n, m, k) x (n, k, p) -> (n, m, p) float32, with
+    both operands in ``dtype``: the reference's ``einsum(...,
+    preferred_element_type=float32)`` on ``dtype`` inputs."""
+    if dtype == torch.float32:
+        return torch.bmm(a.float(), b.float())
+    return _MatmulF32.apply(a, b, dtype)
 
 
 def gqa_forward(params: Params, prefix: str, cfg: ModelConfig,
@@ -29,14 +80,98 @@ def gqa_forward(params: Params, prefix: str, cfg: ModelConfig,
     q = x @ params[f"{prefix}.q.kernel"].to(x.dtype)
     k = x @ params[f"{prefix}.k.kernel"].to(x.dtype)
     v = x @ params[f"{prefix}.v.kernel"].to(x.dtype)
-    q = q.view(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)  # (B, KV, G, S, hd)
-    k = k.view(B, S, KV, 1, hd).permute(0, 2, 3, 1, 4)  # (B, KV, 1, S, hd)
-    v = v.view(B, S, KV, 1, hd).permute(0, 2, 3, 1, 4)
-    s = (q @ k.transpose(-1, -2)).to(torch.float32) / math.sqrt(hd)
+    # (B*KV, G*S, hd) queries against (B*KV, S, hd) keys and values
+    q = q.view(B, S, KV, G, hd).permute(0, 2, 3, 1, 4).reshape(B * KV,
+                                                               G * S, hd)
+    k = k.view(B, S, KV, hd).permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    v = v.view(B, S, KV, hd).permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    s = matmul_f32(q, k.transpose(1, 2), x.dtype) / math.sqrt(hd)
     if cfg.causal:
         pos = torch.arange(S, device=x.device)
-        s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+        s = s.view(B * KV, G, S, S).masked_fill(
+            pos[None, :] > pos[:, None], NEG_INF).view(B * KV, G * S, S)
     p = torch.softmax(s, dim=-1)
-    o = p.to(v.dtype) @ v  # (B, KV, G, S, hd)
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
+    o = matmul_f32(p, v, v.dtype)  # (B*KV, G*S, hd)
+    o = o.view(B, KV, G, S, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, S, H * hd).to(x.dtype)
     return o @ params[f"{prefix}.out.kernel"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+Cache = Dict[str, torch.Tensor]
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Optional[torch.device] = None) -> Cache:
+    """One attention layer's cache: K and V rows (B, max_len, KV, hd) and the
+    absolute position each slot holds (-1 = never written)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((max_len,), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def _index_tensor(index: Union[int, torch.Tensor],
+                  device: torch.device) -> torch.Tensor:
+    """The decode position as a (1,) int64 device tensor (a graphed step
+    passes its static index buffer; eager callers may pass an int)."""
+    if isinstance(index, torch.Tensor):
+        return index.reshape(1).to(torch.int64)
+    return torch.tensor([int(index)], dtype=torch.int64, device=device)
+
+
+def gqa_decode(params: Params, prefix: str, cfg: ModelConfig,
+               x: torch.Tensor, cache: Cache,
+               index: Union[int, torch.Tensor],
+               start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, 1, d_model); ``index``: the absolute position. Writes the
+    step's K/V into ``cache`` in place and returns (B, 1, d_model).
+
+    ``start``: optional (B,) per-sequence first valid absolute position.
+    Continuous-batching serving reuses cache rows across requests; a
+    sequence that joined the batch at position ``start[b]`` must not attend
+    to rows written by the slot's previous occupant (positions < start[b]).
+    Scores and the value product accumulate in float32 (`matmul_f32`, the
+    reference's ``preferred_element_type``)."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    idx = _index_tensor(index, x.device)
+    q = (x @ params[f"{prefix}.q.kernel"].to(x.dtype)).view(B, KV, G, hd)
+    k = (x @ params[f"{prefix}.k.kernel"].to(x.dtype)).view(B, 1, KV, hd)
+    v = (x @ params[f"{prefix}.v.kernel"].to(x.dtype)).view(B, 1, KV, hd)
+    k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
+    k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
+    pos.index_copy_(0, idx, idx.to(pos.dtype))
+    S = k_cache.shape[1]
+    kt = k_cache.permute(0, 2, 3, 1).reshape(B * KV, hd, S)
+    s = (matmul_f32(q.reshape(B * KV, G, hd), kt,
+                    torch.promote_types(q.dtype, k_cache.dtype))
+         / math.sqrt(hd)).view(B, KV, G, S)
+    valid = (pos >= 0) & (pos <= idx.to(pos.dtype))  # (S,)
+    if start is None:
+        s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
+    else:
+        valid = valid[None, :] & (pos[None, :] >= start.to(pos.dtype)[:, None])
+        s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)  # (B, KV, G, S)
+    vc = v_cache.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    o = matmul_f32(p.reshape(B * KV, G, S), vc, v_cache.dtype)
+    o = o.reshape(B, 1, H * hd).to(x.dtype)
+    return o @ params[f"{prefix}.out.kernel"].to(x.dtype)
+
+
+def attention_decode(params: Params, prefix: str, cfg: ModelConfig,
+                     x: torch.Tensor, cache: Cache,
+                     index: Union[int, torch.Tensor],
+                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The decode attention of ``cfg.attn_kind`` (GQA only in this port)."""
+    if cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"{cfg.attn_kind} decode is not ported yet")
+    return gqa_decode(params, prefix, cfg, x, cache, index, start=start)

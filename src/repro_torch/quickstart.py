@@ -422,7 +422,10 @@ def run_fleet(*, reduced_model: bool = False, device: DeviceLike = None,
         time.sleep(3 * DEVICE_INTERVAL)  # the last device samples land
     report = session.result()
     stats = mon.stats()
-    fault_steps = set(range(first_live + lo, first_live + hi))
+    # hits answer an injected fault: with none, a clean run's incident that
+    # happens to fall on the fault's steps is no hit
+    fault_steps = (set(range(first_live + lo, first_live + hi)) if fault_s
+                   else set())
     hits = [i for i in report.incidents
             if FLEET_FAULT_NODE in i.suspect_nodes
             and fault_steps & set(i.steps)]

@@ -24,9 +24,10 @@ On a CUDA device the async detection plane's sweeps run on a stream of
 their own (`DetectionExecutor`), so they never queue behind the training
 step. With a ``topology`` the stream backend runs the hierarchical fleet
 plane (`repro_torch.fleet`), each group's detector on the session's device.
-Not ported yet, and raising until their slices: the request plane's SLOs
-(``spec.slo``, the serve slice; the spec refuses them) and the
-self-telemetry layer (`obs_layer`, the obs slice).
+With ``spec.slo`` and the ``request`` probe, the request plane's SLOs are
+judged every step (`repro_torch.serve.slo`), a plane apart from the GMM
+anomalies. Not ported yet, and raising until its slice: the self-telemetry
+layer (`obs_layer`, the obs slice).
 """
 from __future__ import annotations
 
@@ -138,6 +139,20 @@ class Session:
             from repro_torch.diagnosis import Diagnoser
 
             self._diagnoser = Diagnoser()
+        # request-plane SLO monitoring: a separate thresholding plane over
+        # the request probe's rows, never mixed with the GMM anomaly flags
+        self._slo = None
+        self._slo_diagnoses: List[Any] = []
+        if self.spec.slo is not None:
+            if "request" in self.spec.probes:
+                from repro_torch.serve.slo import SLOMonitor
+
+                self._slo = SLOMonitor(self.spec.slo)
+            else:
+                warnings.warn(
+                    "spec.slo is set but the 'request' probe is not in "
+                    "spec.probes; SLOs will not be judged",
+                    UserWarning, stacklevel=2)
         if self.spec.mode == "stream":
             # tee the wire transport into the sink pipeline
             if any(s.wants_wire or s.wants_events for s in self._sinks):
@@ -180,12 +195,35 @@ class Session:
     # -- telemetry accessors (read by the reference's repro/obs) -------------
     def incidents_seen(self) -> List[Incident]:
         """Incidents finalised so far, severity-ranked (stream: live from
-        the engine; batch: from the final report once built)."""
+        the engine; batch: from the final report once built). SLO-breach
+        incidents are merged in until the final report carries them."""
         if self._report is not None:
             return sorted(self._report.incidents, key=lambda i: -i.severity)
+        slo = self.slo_incidents_seen()
         if self.spec.mode == "stream" and self._backend is not None:
-            return self._backend.monitor.engine.ranked()
-        return []
+            slo = self._backend.monitor.engine.ranked() + slo
+        return sorted(slo, key=lambda i: -i.severity)
+
+    def slo_incidents_seen(self) -> List[Incident]:
+        """Request-plane SLO-breach incidents closed so far."""
+        return list(self._slo.closed) if self._slo is not None else []
+
+    def serve_stats(self) -> Dict[str, float]:
+        """Request-plane aggregates (probe running totals + SLO counters);
+        empty when no request probe is attached."""
+        probe = self._request_probe()
+        out: Dict[str, float] = dict(probe.stats()) if probe else {}
+        if self._slo is not None:
+            out["slo_breaches_total"] = float(self._slo.breaches_total)
+            out["slo_breach_incidents_total"] = float(len(self._slo.closed))
+        return out
+
+    def _request_probe(self):
+        for h in self._nodes.values():
+            for p in h.collector.probes:
+                if p.name == "request":
+                    return p
+        return None
 
     def diagnoses_seen(self) -> List[Any]:
         """Root-cause diagnoses emitted so far (finalise replaces the
@@ -285,7 +323,9 @@ class Session:
     # -- cadence --------------------------------------------------------------
     def on_step(self, step: int) -> StepOutcome:
         """Call once per training/serving step; the spec decides when this
-        flushes, fits, detects, and forms incidents."""
+        flushes, fits, detects, and forms incidents. The SLO plane (when
+        configured) is judged every call — breaches must not wait for a
+        detector cadence point."""
         out = StepOutcome()
         if self.off or step <= 0:
             return out
@@ -293,9 +333,11 @@ class Session:
         det = self.spec.detector
         cadence = step % (det.flush_every if self.spec.mode == "stream"
                           else det.sweep_every) == 0
-        if not cadence:
+        if cadence:
+            self._detect_step(step, out)
+        self._slo_step(out)
+        if not cadence and not out:
             return out
-        self._detect_step(step, out)
         if self.governor is not None and out.detections:
             out.actions = self.governor.decide(out.detections)
         if self.governor is not None and out.diagnoses:
@@ -339,6 +381,27 @@ class Session:
                 else:
                     self._backend.fit(train)
                     out.detections = self._backend.update(cols)
+
+    def _slo_step(self, out: StepOutcome) -> None:
+        """Judge freshly drained request rows against the SLO spec; append
+        any closed breach incidents (and their request-plane diagnoses)."""
+        if self._slo is None:
+            return
+        probe = self._request_probe()
+        if probe is None:
+            return
+        self._slo.observe(probe.drain_slo_rows())
+        closed = self._slo.tick()
+        if not closed:
+            return
+        out.incidents = list(out.incidents) + closed
+        if self._diagnoser is not None:
+            diags = [d for d in (
+                self._diagnoser.diagnose_slo(
+                    inc, self._slo.evidence_for(inc), self.spec.slo)
+                for inc in closed) if d is not None]
+            out.diagnoses = list(out.diagnoses) + diags
+            self._slo_diagnoses.extend(diags)
 
     def _batch_sweep_async(self, step: int, cols, train) -> Dict[Layer, Any]:
         """Batch-mode async sweep: the fit+score closure runs on the
@@ -522,13 +585,40 @@ class Session:
             if self.spec.mode == "stream" and not incidents \
                     and self._backend is not None:
                 incidents = self._backend.incidents  # whatever closed so far
+            if self._slo is not None:
+                # drain + force-close the SLO plane, then merge its full
+                # incident set (mid-run closes included) into the report
+                try:
+                    probe = self._request_probe()
+                    if probe is not None:
+                        self._slo.observe(probe.drain_slo_rows())
+                    for inc in self._slo.flush():
+                        if self._diagnoser is None:
+                            continue
+                        d = self._diagnoser.diagnose_slo(
+                            inc, self._slo.evidence_for(inc), self.spec.slo)
+                        if d is not None:
+                            self._slo_diagnoses.append(d)
+                except Exception as e:
+                    warnings.warn(f"SLO finalise failed ({e!r})",
+                                  RuntimeWarning, stacklevel=2)
+                incidents = list(incidents) + list(self._slo.closed)
             if diagnoses:
-                # the final sweep re-diagnoses every incident; replace the
-                # mid-run accumulation instead of double counting
+                # the final sweep re-diagnoses every anomaly incident;
+                # replace the mid-run accumulation instead of double
+                # counting, then append the SLO plane's diagnoses (which
+                # are only ever produced once per incident)
+                diagnoses = list(diagnoses) + list(self._slo_diagnoses)
                 self._diagnoses_seen = list(diagnoses)
-            elif self._diagnoses_seen:
-                # no final sweep output: keep the mid-run set
-                diagnoses = list(self._diagnoses_seen)
+            elif self._diagnoses_seen or self._slo_diagnoses:
+                # no final anomaly sweep output: keep the mid-run set and
+                # fold in any SLO diagnoses it does not already contain
+                # (mid-run SLO closes were appended to both ledgers)
+                merged = list(self._diagnoses_seen)
+                merged += [d for d in self._slo_diagnoses
+                           if not any(d is m for m in merged)]
+                diagnoses = merged
+                self._diagnoses_seen = list(merged)
             if self._executor is not None:
                 self._executor.close()
                 if hasattr(self._backend, "sweeps_admitted"):
@@ -573,6 +663,7 @@ class Session:
         detections = self._backend.flags()
         incidents = (self._backend.incidents
                      if self.spec.mode == "stream" else [])
+        incidents = list(incidents) + self.slo_incidents_seen()
         overhead = {h.node_id: h.collector.overhead_stats()
                     for h in self._nodes.values()}
         return MonitorReport.build(self.spec.mode, detections, incidents,

@@ -135,12 +135,11 @@ class MonitorSpec:
     # agent-side backpressure governor (repro_torch.fleet). None = flat
     # monitor.
     topology: Optional[TopologySpec] = None
-    # request-plane service-level objectives (the reference's
-    # repro/serve/slo.py SLOSpec, or its dict form). When set and the
-    # "request" probe is attached, breaches of the declared targets close as
-    # kind="slo_breach" incidents — a separate plane from the GMM anomaly
-    # incidents above. None = SLOs not judged. The serve plane is not ported
-    # yet: a spec with SLOs raises.
+    # request-plane service-level objectives (repro_torch.serve.slo.SLOSpec
+    # or its dict form). When set and the "request" probe is attached,
+    # breaches of the declared targets close as kind="slo_breach" incidents
+    # — a separate plane from the GMM anomaly incidents above. None = SLOs
+    # not judged.
     slo: Optional[Any] = None
     seed: int = 0
 
@@ -149,10 +148,11 @@ class MonitorSpec:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
         if isinstance(self.detector, Mapping):
             self.detector = DetectorSpec.from_dict(self.detector)
-        if self.slo is not None:
-            raise NotImplementedError(
-                "spec.slo is not ported yet: SLO monitoring comes with the "
-                "serve/ slice of the port (repro/serve/slo.py)")
+        if isinstance(self.slo, Mapping):
+            # lazy: the serve plane is an import non-serving specs (tools,
+            # docs checks) should not pay for unless SLOs are used
+            from repro_torch.serve.slo import SLOSpec
+            self.slo = SLOSpec.from_dict(self.slo)
         if isinstance(self.topology, Mapping):
             _check_fields(TopologySpec, self.topology)
             self.topology = TopologySpec(**self.topology)

@@ -3,7 +3,9 @@
 wrappers' input checks, the CUDA-graphed train step against the eager one, a
 GMM fit and a streaming detector's warmup and tick on the card against the
 same on the CPU, the eval runner's graphed synthetic step against the eager
-one and one scenario-matrix cell on the card.
+one and one scenario-matrix cell on the card, the serve plane's graphed
+slot step against the eager one and its launcher, and attention's
+float32-result product on bf16 operands against the CPU's.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -583,3 +585,86 @@ def test_only_the_thread_executor_gets_a_stream_of_its_own(cuda):
         session = Session(spec, device=cuda)
         assert isinstance(session._executor.stream, torch.cuda.Stream) == own
         session._executor.close()
+
+
+def test_graphed_slot_step_matches_eager(cuda):
+    """The continuous engine's slot step replayed as a CUDA graph against
+    the same step run eagerly: one request stream with mid-flight joins and
+    an epoch reset (``max_len`` 40), every step's logits bitwise equal."""
+    from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
+                                   RequestQueue, VirtualClock)
+
+    cfg = reduced(get_arch("gpt2"))
+    rt = Runtime(compute_dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=cuda)
+    runs = []
+    for graphed in (True, False):
+        eng = ContinuousBatchingEngine(cfg, rt, params, slots=4, max_len=40,
+                                       seed=0, clock=VirtualClock(0.02))
+        step, logits = eng._step_fn, []
+        if not graphed:
+            step.WARMUP = 1 << 30
+
+        def kept(*a, step=step, logits=logits):
+            out = step(*a)
+            logits.append(out[0][:, -1].float().clone())
+            return out
+
+        eng._step_fn = kept
+        eng.run(LoadGenerator(rate=0.6, num_requests=16, seed=3,
+                              prompt_len=(3, 8), max_new=(4, 10),
+                              vocab_size=cfg.vocab_size),
+                queue=RequestQueue())
+        runs.append((eng, step, torch.stack(logits)))
+    (g, gstep, lg), (e, _, le) = runs
+    assert gstep.graph is not None and gstep.replays >= 40
+    assert g.scheduler.epoch_resets >= 1
+    assert sum(r.start_index > 0 for r in g.finished) >= 4
+    assert torch.equal(lg, le)
+    assert [r.tokens for r in g.finished] == [r.tokens for r in e.finished]
+
+
+def test_serve_launcher_on_the_card(cuda):
+    """`repro_torch.launch.serve` on the card (reduced model): 16 requests
+    served in batch mode with SLOs, the slot step graphed, the GMM kernels
+    launched and no plain version run."""
+    from repro_torch.launch import serve
+
+    launched, plain = dict(kmod.LAUNCHES), dict(ref.CALLS)
+    args = serve.parser().parse_args(
+        ["--reduced", "--device", "cuda", "--num-requests", "16",
+         "--monitor-spec", '{"mode": "batch", "slo": {"ttft_s": 0.4}}'])
+    out = serve.serve(args)
+    assert out["stats"]["requests"] == 16
+    assert out["stats"]["nonfinite_steps"] == 0
+    assert out["engine"]._step_fn.graph is not None
+    assert kmod.LAUNCHES["gmm_score"] > launched["gmm_score"]
+    assert dict(ref.CALLS) == plain
+
+
+def test_matmul_f32_on_the_card_matches_the_cpu(cuda):
+    """Attention's float32-result product on bf16 operands: on the card
+    `aten::bmm.dtype` and the backward of its own, on the CPU the operands
+    upcast; both sum the same bf16 values in float32, so the product
+    agrees within float32 rounding at its scale and the bf16 gradients
+    within one bf16 step (2^-7) at theirs."""
+    from repro_torch.models.attention import matmul_f32
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((24, 128, 64)).astype(np.float32)
+    b = rng.standard_normal((24, 64, 128)).astype(np.float32)
+    g = rng.standard_normal((24, 128, 128)).astype(np.float32)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        ta = torch.tensor(a, device=dev).bfloat16().requires_grad_()
+        tb = torch.tensor(b, device=dev).bfloat16().requires_grad_()
+        out = matmul_f32(ta, tb.transpose(1, 2).contiguous().transpose(1, 2),
+                         torch.bfloat16)
+        assert out.dtype == torch.float32
+        out.backward(torch.tensor(g, device=dev))
+        assert ta.grad.dtype == torch.bfloat16
+        got[dev.type] = [t.detach().float().cpu().numpy()
+                         for t in (out, ta.grad, tb.grad)]
+    for card, cpu, tol in zip(got["cuda"], got["cpu"], (1e-5, 2**-7, 2**-7)):
+        np.testing.assert_allclose(card, cpu, rtol=0,
+                                   atol=tol * float(np.abs(cpu).max()))

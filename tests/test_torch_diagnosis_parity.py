@@ -231,23 +231,35 @@ class _Event:
 
 
 def test_step_probe_waits_on_one_blocking_event(monkeypatch):
-    """On the card each monitored step records one blocking CUDA event (made
-    once) and waits on it: the thread sleeps until the card signals."""
+    """On the card each monitored step records one CUDA event and waits on
+    it: a blocking one (the thread sleeps until the card signals) for the
+    first step and after a step of `SPIN_BELOW_S` or more, a spinning one
+    after a shorter step; each made once."""
     import torch
 
     from repro_torch.core.events import EventTable
+    from repro_torch.core.probes.step_probe import SPIN_BELOW_S
 
     _Event.made = []
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     probe = StepProbe()
     probe.attach(EventTable(64))
-    fn = probe.wrap(lambda x: x + 1)
-    assert [fn(i) for i in range(3)] == [1, 2, 3]
+
+    def step(long):
+        if long:
+            time.sleep(2 * SPIN_BELOW_S)
+        return long
+
+    fn = probe.wrap(step)
+    # blocking (first), spinning, spinning, blocking (after a long one)
+    assert [fn(x) for x in (False, False, True, False)] == \
+        [False, False, True, False]
     probe.detach()
-    (ev,) = _Event.made
-    assert ev.blocking is True
-    assert ev.calls == ["record", "synchronize"] * 3
+    blocking, spinning = _Event.made
+    assert blocking.blocking is True and spinning.blocking is False
+    assert blocking.calls == ["record", "synchronize"] * 2
+    assert spinning.calls == ["record", "synchronize"] * 2
 
 
 def test_step_probe_rows_are_the_reference_s():

@@ -54,7 +54,7 @@ CPU = "cpu"
 LAYERS = ["xla", "operator", "collective", "device", "step"]
 TRAIN = [n for n in chaos.scenario_names()
          if chaos.get_scenario(n).workload == "train"]
-LATER = [n for n in chaos.scenario_names() if n not in TRAIN]
+SERVE_PLANE = [n for n in chaos.scenario_names() if n not in TRAIN]
 
 
 class _Det:
@@ -516,21 +516,96 @@ def test_synth_step_matches_the_reference(seed):
         assert step.graph is None
 
 
-@pytest.mark.parametrize("name", LATER)
-def test_serve_and_request_scenarios_name_the_serve_slice(name):
-    assert LATER and chaos.get_scenario(name).workload in ("serve",
-                                                           "request")
-    with pytest.raises(NotImplementedError, match="serve/ slice"):
-        runner.run_scenario(chaos.get_scenario(name), "batch", n_steps=20,
-                            device=CPU)
+REQUEST = [n for n in SERVE_PLANE
+           if chaos.get_scenario(n).workload == "request"]
+SERVE = [n for n in SERVE_PLANE if chaos.get_scenario(n).workload == "serve"]
 
 
-@pytest.mark.parametrize("fn", ["_serve_parts", "_request_parts",
-                                "_run_serve_steps", "_run_request_steps"])
-def test_serve_workloads_name_the_serve_slice(fn):
-    args = () if fn.endswith("parts") else (None,) * 6
-    with pytest.raises(NotImplementedError, match="serve/ slice"):
-        getattr(runner, fn)(*args)
+def _slo_sig(run):
+    return (run.slo_metrics().to_json(),
+            [(i.kind, i.suspect_nodes, i.n_flags, round(i.severity, 9),
+              i.steps) for i in run.report.incidents],
+            [d.fault_kind for d in run.report.diagnoses])
+
+
+@pytest.mark.parametrize("name", REQUEST)
+def test_request_scenarios_equal_the_reference(name):
+    """A request cell is a pure function of its seed (the virtual clock):
+    its SLO-breach incidents, their scoring and the request-plane
+    diagnoses equal the reference's, in both modes."""
+    for mode in ("batch", "stream"):
+        mine = runner.run_scenario(chaos.get_scenario(name), mode,
+                                   device=CPU)
+        theirs = jrunner.run_scenario(jchaos.get_scenario(name), mode)
+        assert _slo_sig(mine) == _slo_sig(theirs), mode
+        if name == "serve_clean_control":
+            assert mine.slo_metrics().incidents_total == 0
+        else:
+            assert mine.slo_metrics().recall == 1.0
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_serve_scenarios_run_the_decode_loop(name):
+    """A serve cell runs the decode loop under the probes: finite, every
+    step observed once on the STEP and runtime (executable_run) layers as
+    in the reference's cell, the operator stream read off the decode step,
+    and the labels the reference's."""
+    run = runner.run_scenario(chaos.get_scenario(name), "batch", n_steps=80,
+                              device=CPU)
+    want = jchaos.get_scenario(name).injector(80)
+    np.testing.assert_array_equal(run.labels, want.labels(80))
+    assert run.windows == want.windows()
+    layers = run.report.layers
+    assert layers["step"].events == 80
+    assert layers["xla"].events == 80  # the step probe's executable_run
+    assert layers["operator"].events == 80 * 24  # top 24 ops a step
+    assert np.all(np.diff(run.step_ts) > 0)
+
+
+def test_serve_parts_decode_as_the_reference():
+    """`_serve_parts`' step on the CPU: the reduced GPT-2 decode step,
+    teacher-forced over the same tokens as the reference's decode_step on
+    converted weights, to float32 tolerance (rtol/atol 1e-4)."""
+    import jax
+
+    from repro.config import get_arch as jget_arch
+    from repro.config import reduced as jreduced
+    from repro.models import model as jmodel
+    from repro_torch.models.convert import params_from_jax
+
+    cfg, params, step, make_caches = runner._serve_parts(CPU)
+    assert cfg == runner._request_parts(CPU)[0]
+    jcfg = jreduced(jget_arch("gpt2"))
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (
+        jcfg.n_layers, jcfg.d_model, jcfg.vocab_size)
+    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device=CPU)
+    jstep = jax.jit(lambda p, b, c, i: jmodel.decode_step(
+        p, jcfg, jmodel.Runtime(mesh=None, compute_dtype=jnp.float32), b,
+        c, i))
+    caches, jc = make_caches(2, 8), jmodel.init_decode_caches(jcfg, 2, 8)
+    tok = np.random.default_rng(0).integers(1, 200, (2, 6)).astype(np.int32)
+    for t in range(6):
+        got, caches = step(tp, {"tokens": tok[:, t:t + 1]}, caches, t)
+        want, jc = jstep(jp, {"tokens": jnp.asarray(tok[:, t:t + 1])}, jc,
+                         jnp.int32(t))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_request_workload_runs_on_the_virtual_clock():
+    """`_run_request_steps` through a session with the request probe: the
+    step clock is the virtual one, and requests finish."""
+    from repro_torch.session import MonitorSpec, Session
+
+    spec = MonitorSpec(mode="batch", probes=["request"],
+                       slo=dict(runner.SERVE_SLO), governor=False)
+    session = Session(spec, device=CPU)
+    cfg = runner.EvalConfig()
+    injector = chaos.get_scenario("serve_clean_control").injector(120)
+    ts = runner._run_request_steps(session, injector, 120, 48, cfg, 0)
+    np.testing.assert_array_equal(ts, np.arange(120) * runner.SERVE_DT)
+    assert session.serve_stats()["requests_total"] > 5
 
 
 def test_run_scenario_refuses_a_bad_mode_and_a_missing_card():
@@ -662,24 +737,36 @@ def test_launcher_writes_the_matrix_and_leaderboard(tmp_path, capsys):
                      or bool(doc["rows"][0]["diagnosis"]["diagnoses_total"]))
 
 
-@pytest.mark.parametrize("scenarios", ["serve-smoke", "serve_tenant_flood",
-                                       "clean_control,serve_latency_spike"])
-def test_launcher_refuses_serve_scenarios(scenarios, capsys):
-    with pytest.raises(SystemExit) as e:
-        evaluate.main(["--scenarios", scenarios, "--device", "cpu"])
-    assert e.value.code == 2
-    assert "serve/ slice" in capsys.readouterr().err
+def test_launcher_serve_smoke_passes_its_gates(tmp_path, capsys):
+    """``--scenarios serve-smoke --device cpu``: the serve clean control
+    closes no SLO-breach incident, the tenant flood raises one and is
+    diagnosed as tenant_flood, and the launcher exits 0."""
+    out = tmp_path / "eval-serve"
+    rc = evaluate.main(["--scenarios", "serve-smoke", "--device", "cpu",
+                        "--out", str(out)])
+    assert rc == 0
+    doc = json.loads((out / "scenario_matrix.json").read_text())
+    assert [(r["scenario"], r["mode"]) for r in doc["rows"]] == [
+        (n, m) for n in jchaos.SERVE_SMOKE_SCENARIOS for m in matrix.MODES]
+    assert matrix.serve_clean_breaches(doc) == 0
+    assert matrix.serve_breach_recall(doc) == 1.0
+    for r in doc["rows"]:
+        if r["scenario"] == "serve_tenant_flood":
+            assert r["diagnosis"]["kinds"] and set(
+                r["diagnosis"]["kinds"]) == {"tenant_flood"}
+    assert "breach_inc=" in capsys.readouterr().out
 
 
-def test_launcher_all_leaves_out_the_serve_scenarios(capsys):
-    ap = evaluate.argparse.ArgumentParser()
-    names = evaluate._resolve_scenarios(ap, "all")
-    assert names == TRAIN
-    assert set(jchaos.scenario_names()) - set(names) == set(LATER)
-    err = capsys.readouterr().err
-    assert "serve/ slice" in err and all(n in err for n in LATER)
-    assert evaluate._resolve_scenarios(ap, "smoke") == list(
+def test_launcher_resolves_every_scenario():
+    assert evaluate._resolve_scenarios("all") == jchaos.scenario_names()
+    assert evaluate._resolve_scenarios("smoke") == list(
         jchaos.SMOKE_SCENARIOS)
+    assert evaluate._resolve_scenarios("serve-smoke") == list(
+        jchaos.SERVE_SMOKE_SCENARIOS)
+    assert evaluate._resolve_scenarios("clean_control,serve_latency_spike") \
+        == ["clean_control", "serve_latency_spike"]
+    with pytest.raises(SystemExit, match="unknown scenario"):
+        evaluate._resolve_scenarios("no_such_scenario")
 
 
 def test_launcher_without_a_device_needs_a_card(tmp_path):

@@ -150,9 +150,19 @@ def test_spec_errors_equal_the_reference(bad):
     assert str(got.value) == str(want.value)
 
 
-def test_spec_with_slos_names_the_serve_slice():
-    with pytest.raises(NotImplementedError, match="serve/ slice"):
-        MonitorSpec(mode="batch", slo={"ttft_s": 0.4})
+def test_spec_slos_parse_as_the_reference():
+    """``spec.slo`` in dict form becomes an SLOSpec with the reference's
+    fields and values; the JSON form round-trips."""
+    import dataclasses as dc
+
+    from repro.session import MonitorSpec as JMonitorSpec
+
+    d = {"ttft_s": 0.4, "queue_wait_s": 0.2, "min_breaches": 3}
+    got = MonitorSpec(mode="batch", slo=d).slo
+    want = JMonitorSpec(mode="batch", slo=d).slo
+    assert dc.asdict(got) == dc.asdict(want)
+    assert MonitorSpec.from_json(
+        MonitorSpec(mode="batch", slo=d).to_json()).slo == got
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +172,8 @@ def test_spec_with_slos_names_the_serve_slice():
 def test_registry_errors_list_what_is_available():
     with pytest.raises(KeyError) as e:
         registry.build_probe("nope")
-    assert ("available: collective, device, operator, python, step, xla"
-            in str(e.value))
+    assert ("available: collective, device, operator, python, request, "
+            "step, xla" in str(e.value))
     with pytest.raises(KeyError) as e:
         registry.detector_backend("nope", "batch")
     assert "available: ('gmm', 'batch'), ('gmm', 'stream')" in str(e.value)
@@ -185,20 +195,21 @@ def test_registry_message_format_is_the_reference():
                                        "available: collective, device")
 
 
-def test_probe_names_are_the_reference_minus_the_serve_plane():
-    assert registry.probe_names() == [n for n in jregistry.probe_names()
-                                      if n != "request"]
+def test_probe_names_equal_the_reference():
+    assert registry.probe_names() == jregistry.probe_names()
 
 
-@pytest.mark.parametrize("kind,name,where", [
-    ("probe", "request", "serve/")])
-def test_later_probes_and_backends_name_their_slice(kind, name, where):
-    """What the reference registers and the port does not have yet raises
-    an error naming the slice, not a bare lookup miss. (The detector
-    families are ported: tests/test_torch_families.py.)"""
-    assert name in jregistry.probe_names()
-    with pytest.raises(NotImplementedError, match=where):
-        registry.build_probe(name)
+def test_request_probe_builds_from_the_registry():
+    """The ``request`` probe, with the reference's options."""
+    from repro_torch.serve.probe import RequestProbe
+
+    p = registry.build_probe("request", {"sample_every": 2,
+                                         "slo_buffer": 16})
+    want = jregistry.build_probe("request", {"sample_every": 2,
+                                             "slo_buffer": 16})
+    assert isinstance(p, RequestProbe) and p.name == want.name == "request"
+    assert (p.sample_every, p._slo_buffer) == (want.sample_every,
+                                               want._slo_buffer) == (2, 16)
 
 
 @pytest.mark.parametrize("kind", ["prometheus", "board"])

@@ -220,6 +220,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.eval.fixtures", "repro_torch.eval.runner",
             "repro_torch.eval.matrix",
             "repro_torch.launch.evaluate"} <= set(mods)
+    # and those of the serve slice
+    assert {"repro_torch.serve", "repro_torch.serve.engine",
+            "repro_torch.serve.continuous", "repro_torch.serve.request",
+            "repro_torch.serve.scheduler", "repro_torch.serve.probe",
+            "repro_torch.serve.slo", "repro_torch.launch.serve"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -246,7 +251,8 @@ def test_port_sources_and_chip_smoke_import_no_jax():
             PORT / "stream" / "backends.py", PORT / "eval" / "runner.py",
             PORT / "eval" / "metrics.py", PORT / "eval" / "fixtures.py",
             PORT / "eval" / "matrix.py",
-            PORT / "launch" / "evaluate.py",
+            PORT / "launch" / "evaluate.py", PORT / "launch" / "serve.py",
+            PORT / "serve" / "continuous.py", PORT / "serve" / "engine.py",
             ROOT / "scripts" / "clean_control_rate.py"} <= set(files)
     hits = [f"{f}:{m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
