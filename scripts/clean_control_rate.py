@@ -3,8 +3,10 @@
 
     PYTHONPATH=src python3 scripts/clean_control_rate.py --mode stream \
         [--pass a|b] [--after-session] [--cells 20] [--label NAME] \
-        [--fixture PATH]
-    PYTHONPATH=src python3 scripts/clean_control_rate.py --runs 12
+        [--condition base|switch|gate|noproc|spin|nohooks|xla_exec] \
+        [--scenario NAME] [--fixture PATH] [--out DIR] [--stacks]
+    PYTHONPATH=src python3 scripts/clean_control_rate.py --runs 12 \
+        [--condition ...]
 
 ``--pass b`` (the default) builds the clean-control cell of
 `chip_smoke.py`'s eval pass B with the functions `eval_pass_b` calls
@@ -42,6 +44,36 @@ batch,stream`, TF32 off) in each of N fresh processes, one after
 another, each its own context's first work; one line a run (its exit
 code, each mode's clean-control FAR and diagnoses) and a summary.
 
+What the host did in each monitored step (`StepWatch`, in every mode,
+``--runs`` children included). A stall is a step whose STEP row (the
+duration the detectors see) ran 4 ms past the cell's median. Per step:
+the STEP row's ms split into the user's step and the waits on CUDA events,
+the graph's device time (the runtime probe's CUDA events), the device
+sampler's sweeps and /proc reads overlapping the step, the gaps of a
+second process that only reads the clock (`spin`: the machine pausing
+every process), the main thread's and the process's CPU clocks and
+`resource.getrusage` deltas (switches, faults). Per cell: the live threads
+at its first step (Python's names and the OS threads of /proc/self/task)
+and each OS thread's CPU ms over the cell. A cell's line sums these up (the
+stalls beside the typical step); each step's record goes under ``--out``.
+``--stacks`` also arms a `faulthandler.dump_traceback_later` watchdog
+before each step, which writes every thread's Python stack when the step
+runs 3 ms past the running median; on the card's Python 3.12.3 it
+segfaulted the process within a few cells, so it is off by default.
+
+``--condition`` runs the cell under a diagnostic: ``switch`` sets
+`sys.setswitchinterval` to 0.5 ms (the GIL's hand-off interval, 5 ms by
+default), ``gate`` holds the device probe's sampler while a monitored step
+is in flight, ``xla_exec`` drops the runtime probe's rows so the XLA layer
+models only the step probe's ``executable_run``, as the reference's does,
+``noproc`` has the sampler read /proc once and reuse it, ``spin`` has the
+step probe spin on its event after every step (not only under 2 ms),
+``nohooks`` leaves torch's CUDA entry points unhooked (the runtime probe
+attached but blind).
+None is a repair: each changes what is measured. ``--scenario`` builds
+another scenario's cell in place of the clean control (pass B's
+``runtime_stall``, to read the kind it is blamed on).
+
 Needs a card; pass B ~7 s a cell after ~30 s of set-up, pass A ~4 s a
 cell, a ``--runs`` process ~25 s.
 ``--device cpu`` is a dry run on the reduced model.
@@ -49,17 +81,405 @@ cell, a ``--runs`` process ~25 s.
 from __future__ import annotations
 
 import argparse
+import collections as pycollections
 import contextlib
+import faulthandler
 import gc
 import json
 import os
+import re
+import resource
 import shutil
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SLOW_MS = 0.5  # a step this much over the cell's median step is slow
+STALL_MS = 4.0  # a step this much over the cell's median step is a stall
+WATCH_SLACK_S = 0.003  # the watchdog fires past the running median + this
 EVIDENCE_LAYERS = ("device", "collective")  # what the diagnoser splits on
+CONDITIONS = ("base", "switch", "gate", "xla_exec", "noproc", "spin",
+              "nohooks")
+RUSAGE = ("ru_utime", "ru_stime", "ru_nvcsw", "ru_nivcsw", "ru_minflt",
+          "ru_majflt")
+SHORT = {"ru_utime": "user_ms", "ru_stime": "sys_ms", "ru_nvcsw": "vcs",
+         "ru_nivcsw": "ivcs", "ru_minflt": "minflt", "ru_majflt": "majflt"}
+# the sampler may sample (``gate``): cleared while a monitored step runs
+IDLE = threading.Event()
+IDLE.set()
+
+
+def apply_condition(name: str) -> None:
+    """Put this process under ``name`` (`CONDITIONS`)."""
+    if name == "switch":
+        sys.setswitchinterval(0.0005)
+    elif name == "gate":
+        from repro_torch.core.probes.device_probe import DeviceProbe
+
+        sample_once = DeviceProbe.sample_once
+
+        def gated(self):
+            IDLE.wait()
+            sample_once(self)
+
+        DeviceProbe.sample_once = gated
+    elif name == "xla_exec":
+        from repro_torch.core.probes.runtime_probe import CudaRuntimeProbe
+
+        CudaRuntimeProbe.emit_rows = lambda self, *a, **k: None
+    elif name == "spin":
+        from repro_torch.core.probes import step_probe
+
+        step_probe.SPIN_BELOW_S = float("inf")  # every step spins
+    elif name == "nohooks":
+        from repro_torch.core.probes import runtime_probe
+
+        runtime_probe._install = lambda: None  # the probe hooks nothing
+    elif name == "noproc":
+        from repro_torch.core.probes.device_probe import ProcStats
+
+        sample = ProcStats.sample
+
+        def once(self):  # /proc read at the first sweep only
+            if not hasattr(self, "_first"):
+                self._first = sample(self)
+            return self._first
+
+        ProcStats.sample = once
+
+
+def rusage_delta(a, b) -> dict:
+    return {SHORT[k]: (round(1e3 * (getattr(b, k) - getattr(a, k)), 3)
+                       if k in ("ru_utime", "ru_stime")
+                       else getattr(b, k) - getattr(a, k)) for k in RUSAGE}
+
+
+def os_threads() -> dict:
+    """tid -> (comm, CPU ticks) of this process's OS threads."""
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        comm = stat[stat.index("(") + 1:stat.rindex(")")]
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[int(tid)] = (comm, int(fields[11]) + int(fields[12]))
+    return out
+
+
+def thread_label(tid: int, names: dict) -> str:
+    if tid == os.getpid():
+        return "main"
+    return names.get(tid) or "native"
+
+
+# the device sampler's own clock (`clock_sampler`): each sweep's and each
+# /proc read's (start, end) on the perf_counter clock
+SWEEPS: list = []
+PROC_READS: list = []
+
+
+def clock_sampler() -> None:
+    """Time every sweep of the device probe's sampler (`sample_once`) and
+    its /proc reads (`ProcStats.sample`) from here on."""
+    from repro_torch.core.probes import device_probe
+
+    def clocked(fn, into):
+        def timed(self, *a):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a)
+            finally:
+                into.append((t0, time.perf_counter()))
+        return timed
+
+    device_probe.DeviceProbe.sample_once = clocked(
+        device_probe.DeviceProbe.sample_once, SWEEPS)
+    device_probe.ProcStats.sample = clocked(device_probe.ProcStats.sample,
+                                            PROC_READS)
+
+
+# the step in flight as the step probe saw it: its STEP row's duration, and
+# the seconds spent in the user's step and in waits on CUDA events
+PHASE = {"step": None, "fn": 0.0, "sync": 0.0, "graph": 0.0}
+
+
+def clock_step_phases() -> None:
+    """Record each monitored step's STEP-row duration and, inside it, the
+    user step's and the CUDA-event waits' seconds (`PHASE`), from here on
+    (before any probe attaches, so the runtime probe's hook wraps this)."""
+    import torch
+
+    from repro_torch.core.events import Layer
+    from repro_torch.core.probes.step_probe import StepProbe
+
+    emit = StepProbe.emit_rows
+
+    def emit_rows(self, layer, name, ts, dur=0.0, *a, **k):
+        if layer == Layer.STEP:
+            PHASE["step"] = float(dur)
+        return emit(self, layer, name, ts, dur, *a, **k)
+
+    StepProbe.emit_rows = emit_rows
+    sync = torch.cuda.Event.synchronize
+
+    def timed_sync(self):
+        t0 = time.perf_counter()
+        try:
+            return sync(self)
+        finally:
+            PHASE["sync"] += time.perf_counter() - t0
+
+    torch.cuda.Event.synchronize = timed_sync
+    elapsed = torch.cuda.Event.elapsed_time
+
+    def graph_ms(self, end):  # the runtime probe's graph device times
+        ms = elapsed(self, end)
+        PHASE["graph"] += ms
+        return ms
+
+    torch.cuda.Event.elapsed_time = graph_ms
+
+
+def spin(seconds: float) -> int:
+    """``--spin``: a process that only reads the clock, printing every gap
+    over 2 ms as ``start end`` (perf_counter, the system's monotonic clock,
+    which the process under test shares): when this process was not run."""
+    last = time.perf_counter()
+    end = last + seconds
+    while last < end:
+        now = time.perf_counter()
+        if now - last > 0.002:
+            print(f"{last} {now}", flush=True)
+        last = now
+    return 0
+
+
+class Spinner:
+    """A `spin` process beside the process under test, for as long as this
+    object lives; ``gaps()`` reads what it has printed so far."""
+
+    def __init__(self, out_dir: str, tag: str, seconds: float = 3600.0):
+        os.makedirs(out_dir, exist_ok=True)
+        self.path = os.path.join(out_dir, f"{tag}.spin.txt")
+        self._f = open(self.path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--spin",
+             str(seconds)], stdout=self._f)
+
+    def gaps(self) -> list:
+        with open(self.path) as f:
+            return [tuple(map(float, line.split())) for line in f
+                    if len(line.split()) == 2]
+
+    def close(self) -> None:
+        self.proc.terminate()
+        self.proc.wait()
+        self._f.close()
+
+
+SPINNER: list = []  # the live `Spinner`, if any
+
+
+def overlap_ms(spans, a: float, b: float) -> float:
+    return 1e3 * sum(max(0.0, min(b, t1) - max(a, t0)) for t0, t1 in spans
+                     if t1 > a and t0 < b)
+
+
+class StepWatch:
+    """The instruments around each monitored step of one cell (module
+    docstring): ``wrap`` the monitored step, ``summary()`` after the
+    cell."""
+
+    def __init__(self, out_dir: str, tag: str, prior_s: float = 0.02,
+                 stacks: bool = False):
+        os.makedirs(out_dir, exist_ok=True)
+        self.base = os.path.join(out_dir, tag)
+        self.stacks_on = stacks
+        self.dump = open(self.base + ".stacks.txt", "w") if stacks else None
+        self.prior_s = prior_s
+        self.spans, self.thread, self.proc, self.cpu = [], [], [], []
+        # (STEP row ms, user step ms, event-wait ms, graph device ms)
+        self.phases = []
+        self.names, self.idents, self.py_threads = {}, {}, []
+        self.tasks0 = {}
+        self.n_sweeps, self.n_reads = len(SWEEPS), len(PROC_READS)
+
+    def _cell_start(self) -> None:
+        """At the first monitored step (the probes attached): the live
+        threads, and each OS thread's CPU so far."""
+        live = threading.enumerate()
+        self.names = {t.native_id: t.name for t in live}
+        self.idents = {t.ident: t.name for t in live}
+        self.py_threads = sorted(t.name for t in live)
+        self.tasks0 = os_threads()
+
+    def wrap(self, monitored):
+        def call(*a):
+            if not self.spans:
+                self._cell_start()
+            if self.stacks_on:
+                durs = [b - a_ for a_, b in self.spans]
+                med = (statistics.median(durs[-60:]) if len(durs) >= 10
+                       else self.prior_s)
+                self.dump.write(f"== step {len(self.spans)}\n")
+                self.dump.flush()
+                faulthandler.dump_traceback_later(med + WATCH_SLACK_S,
+                                                  file=self.dump)
+            IDLE.clear()
+            PHASE.update(step=None, fn=0.0, sync=0.0, graph=0.0)
+            rt0 = resource.getrusage(resource.RUSAGE_THREAD)
+            rp0 = resource.getrusage(resource.RUSAGE_SELF)
+            c0, p0 = time.thread_time(), time.process_time()
+            t0 = time.perf_counter()
+            try:
+                return monitored(*a)
+            finally:
+                t1 = time.perf_counter()
+                c1, p1 = time.thread_time(), time.process_time()
+                rt1 = resource.getrusage(resource.RUSAGE_THREAD)
+                rp1 = resource.getrusage(resource.RUSAGE_SELF)
+                IDLE.set()
+                if self.stacks_on:
+                    faulthandler.cancel_dump_traceback_later()
+                self.spans.append((t0, t1))
+                self.phases.append(
+                    (1e3 * (PHASE["step"] if PHASE["step"] is not None
+                            else t1 - t0), 1e3 * PHASE["fn"],
+                     1e3 * PHASE["sync"], PHASE["graph"]))
+                self.cpu.append((1e3 * (c1 - c0), 1e3 * (p1 - p0)))
+                self.thread.append(rusage_delta(rt0, rt1))
+                self.proc.append(rusage_delta(rp0, rp1))
+        return call
+
+    def stacks(self) -> dict:
+        """step -> {thread label: top frames} of every watchdog dump."""
+        if not self.stacks_on:
+            return {}
+        self.dump.close()
+        with open(self.base + ".stacks.txt") as f:
+            text = f.read()
+        idents = dict(self.idents)
+        idents.update({t.ident: t.name for t in threading.enumerate()})
+        out = {}
+        for block in re.split(r"^== step ", text, flags=re.M)[1:]:
+            head, _, rest = block.partition("\n")
+            if "Thread 0x" not in rest:
+                continue
+            threads = {}
+            for t in re.split(r"^(?:Current thread|Thread) ", rest,
+                              flags=re.M)[1:]:
+                ident = int(t.split()[0], 16)
+                label = ("main" if ident == threading.main_thread().ident
+                         else idents.get(ident) or f"0x{ident:x}")
+                frames = re.findall(r'File "([^"]+)", line (\d+) in (\S+)',
+                                    t)
+                threads[label] = [f"{os.path.basename(p)}:{n} {fn}"
+                                  for p, n, fn in frames[:3]]
+            out[int(head)] = threads
+        return out
+
+    def summary(self) -> dict:
+        import numpy as np
+
+        tasks1 = os_threads()
+        # stalls as the detectors see them: the STEP row's duration
+        ms = np.array([p[0] for p in self.phases])
+        med = float(np.median(ms)) if len(ms) else 0.0
+        slow = [int(i) for i in np.argsort(-ms) if ms[i] > med + SLOW_MS]
+        stalls = [i for i in slow if ms[i] > med + STALL_MS]
+        typical = [i for i in range(len(ms)) if ms[i] <= med + SLOW_MS]
+        sweeps = SWEEPS[self.n_sweeps:]
+        reads = PROC_READS[self.n_reads:]
+        gaps = SPINNER[0].gaps() if SPINNER else []
+        rows = []
+        for (a, b), (step, fn, sync, graph), (cpu, pcpu), t in zip(
+                self.spans, self.phases, self.cpu, self.thread):
+            rows.append({"ms": step, "call_ms": 1e3 * (b - a),
+                         "fn_ms": fn, "sync_ms": sync, "graph_ms": graph,
+                         "main_cpu_ms": cpu, "process_cpu_ms": pcpu,
+                         "sampler_ms": overlap_ms(sweeps, a, b),
+                         "proc_read_ms": overlap_ms(reads, a, b),
+                         "spin_gap_ms": overlap_ms(gaps, a, b), **t})
+        keys = ("ms", "call_ms", "fn_ms", "sync_ms", "graph_ms",
+                "main_cpu_ms",
+                "process_cpu_ms", "sampler_ms", "proc_read_ms",
+                "spin_gap_ms", "vcs", "ivcs", "minflt")
+
+        def mean(idx):
+            return {k: round(float(np.mean([rows[i][k] for i in idx])), 3)
+                    for k in keys} if idx else {}
+
+        def spread(spans):
+            d = 1e3 * np.array([b - a for a, b in spans])
+            return ({"n": len(d), "p50_ms": round(float(np.median(d)), 3),
+                     "p90_ms": round(float(np.percentile(d, 90)), 3),
+                     "max_ms": round(float(d.max()), 3)} if len(d) else {})
+
+        dumps = self.stacks()
+        tick = os.sysconf("SC_CLK_TCK")
+        cpu = {}
+        for tid, (comm, ticks) in tasks1.items():
+            used = ticks - self.tasks0.get(tid, (comm, 0))[1]
+            if used:
+                label = f"{thread_label(tid, self.names)}/{comm}"
+                cpu[label] = cpu.get(label, 0.0) + 1e3 * used / tick
+        with open(self.base + ".steps.jsonl", "w") as f:
+            for i, r in enumerate(rows):
+                f.write(json.dumps(dict(r, step=i)) + "\n")
+        return {
+            "threads_at_start": {
+                "python": self.py_threads,
+                "os": dict(pycollections.Counter(
+                    f"{thread_label(t, self.names)}/{c}"
+                    for t, (c, _) in self.tasks0.items()))},
+            "thread_cpu_ms": dict(sorted(cpu.items(),
+                                         key=lambda kv: -kv[1])[:8]),
+            "sampler_sweep": spread(sweeps), "proc_read": spread(reads),
+            "steps": len(rows), "stalls": len(stalls),
+            "stall_at": stalls[:12],
+            "stall_rows": [dict({k: round(float(rows[i][k]), 3)
+                                 for k in keys}, step=i,
+                                excess_ms=round(float(ms[i] - med), 3))
+                           for i in stalls[:8]],
+            "stalls_in_a_proc_read": sum(rows[i]["proc_read_ms"] > 0
+                                         for i in stalls),
+            "stalls_in_a_spin_gap": sum(rows[i]["spin_gap_ms"] > 0
+                                        for i in stalls),
+            "steps_in_a_spin_gap": sum(r["spin_gap_ms"] > 0 for r in rows),
+            "spin_gaps": len([g for g in gaps if self.spans
+                              and self.spans[0][0] <= g[0]
+                              <= self.spans[-1][1]]),
+            "span_s": (self.spans[-1][1] - self.spans[0][0]
+                       if self.spans else 0.0),
+            "slow_mean": mean(slow), "typical_mean": mean(typical),
+            "steps_in_a_proc_read": sum(r["proc_read_ms"] > 0 for r in rows),
+            "watchdog_dumps": len(dumps),
+            "stall_stacks": {str(i): dumps[i] for i in stalls[:4]
+                             if i in dumps},
+        }
+
+
+def watch_session(session, watch: "StepWatch") -> None:
+    """Every step ``session.observe_step_fn`` hands back runs under
+    ``watch``."""
+    observe = session.observe_step_fn
+
+    def watched_observe(fn, **kw):
+        def user_step(*a, **k):  # the user's step, inside the STEP window
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                PHASE["fn"] += time.perf_counter() - t0
+
+        return watch.wrap(observe(user_step, **kw))
+
+    session.observe_step_fn = watched_observe
 
 
 def steal_s() -> float:
@@ -234,13 +654,13 @@ def threaded_session(dev) -> dict:
     return {"steps": len(out["losses"]), "steps_per_s": out["steps_per_s"]}
 
 
-def pass_a_cell(mode, dev, n):
-    """Pass A's clean cell: ``one(timed) -> ScenarioRun``, ``timed`` called
-    on the cell's session before its first step."""
+def pass_a_cell(mode, dev, n, name="clean_control"):
+    """Pass A's cell of scenario ``name``: ``one(timed) -> ScenarioRun``,
+    ``timed`` called on the cell's session before its first step."""
     from repro_torch.core.chaos import get_scenario
     from repro_torch.eval import matrix, runner
 
-    scenario = get_scenario("clean_control")
+    scenario = get_scenario(name)
     cfg = matrix.CONFIG_GRID["default"]
 
     def one(timed):
@@ -259,9 +679,9 @@ def pass_a_cell(mode, dev, n):
     return one
 
 
-def pass_b_cell(mode, dev, n, cells):
-    """Pass B's clean cell around the full-width GPT-2 step, built once and
-    shared by every cell: ``one(timed) -> ScenarioRun``."""
+def pass_b_cell(mode, dev, n, cells, name="clean_control"):
+    """Pass B's cell of scenario ``name`` around the full-width GPT-2 step,
+    built once and shared by every cell: ``one(timed) -> ScenarioRun``."""
     import torch
 
     from repro_torch import quickstart
@@ -277,7 +697,7 @@ def pass_b_cell(mode, dev, n, cells):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     cfg = runner.EvalConfig()
-    scenario = get_scenario("clean_control")
+    scenario = get_scenario(name)
     held = {"state": state}
 
     def one(timed):
@@ -290,19 +710,22 @@ def pass_b_cell(mode, dev, n, cells):
     return one
 
 
-def evaluator_runs(n: int, dev) -> int:
+def evaluator_runs(n: int, dev, args) -> int:
     """``--runs``: pass A as the smoke's child runs it, in ``n`` fresh
-    processes (this script again, with ``--one-run OUT``)."""
+    processes (this script again, with ``--one-run OUT``), each under
+    ``--condition``; a line a run with its clean cells' host summaries."""
     tmp = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "results", "clean_control_runs")
-    rcs, runs = [], []
+    rcs, runs, hosts = [], [], []
     for i in range(n):
         out = os.path.join(tmp, f"run{i}")
         shutil.rmtree(out, ignore_errors=True)
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one-run",
-             out, "--device", dev.type], capture_output=True,
-            text=True, timeout=600)
+             out, "--device", dev.type, "--condition", args.condition,
+             "--out", os.path.join(args.out, f"{args.label}_run{i}"),
+             *(["--stacks"] if args.stacks else [])],
+            capture_output=True, text=True, timeout=600)
         path = os.path.join(out, "scenario_matrix.json")
         if not os.path.exists(path):
             print(proc.stderr[-2000:], file=sys.stderr)
@@ -312,27 +735,120 @@ def evaluator_runs(n: int, dev) -> int:
         clean = {r["mode"]: {"far": r["metrics"]["false_alarm_rate"],
                              "diagnoses": r["diagnosis"]["kinds"]}
                  for r in rows if r["scenario"] == "clean_control"}
+        host = {}
+        with open(os.path.join(out, "host.jsonl")) as f:
+            for line in f:
+                cell = json.loads(line)
+                if cell["scenario"] == "clean_control":
+                    host[cell["mode"]] = cell["host"]
         rcs.append(proc.returncode)
         runs.append(clean)
-        print(json.dumps({"run": i, "rc": proc.returncode,
-                          "clean_control": clean}), flush=True)
+        hosts.extend(host.values())
+        print(json.dumps({"run": i, "condition": args.condition,
+                          "rc": proc.returncode, "clean_control": clean,
+                          "host": host}), flush=True)
     print(json.dumps({"summary": {
-        "runs": n, "failed_runs": sum(bool(rc) for rc in rcs),
+        "runs": n, "condition": args.condition,
+        "failed_runs": sum(bool(rc) for rc in rcs),
         "diagnosed": {m: sum(bool(r[m]["diagnoses"]) for r in runs)
                       for m in ("batch", "stream")},
-        "card": card()}}), flush=True)
+        **host_totals(hosts), "card": card()}}), flush=True)
     return 0
 
 
-def one_run(out: str, dev) -> int:
-    """``--one-run OUT``: the evaluator once, as pass A's child runs it."""
+def one_run(out: str, dev, watch_dir: str, stacks: bool) -> int:
+    """``--one-run OUT``: the evaluator once, as pass A's child runs it,
+    every cell's steps under a `StepWatch`; each cell's host summary is a
+    line of OUT/host.jsonl."""
+    from repro_torch.eval import runner
     from repro_torch.launch import evaluate
 
+    inner = runner._run_train_steps
+    os.makedirs(out, exist_ok=True)
+    cells = []
+
+    def watched(session, injector, *a):
+        # the clean control is the cell without faults
+        name = "+".join(sorted({f.kind for f in injector.faults})) \
+            or "clean_control"
+        mode = session.spec.mode
+        watch = StepWatch(watch_dir, f"cell{len(cells)}_{name}_{mode}",
+                          stacks=stacks)
+        watch_session(session, watch)
+        try:
+            return inner(session, injector, *a)
+        finally:
+            cells.append(name)
+            with open(os.path.join(out, "host.jsonl"), "a") as f:
+                f.write(json.dumps({"scenario": name, "mode": mode,
+                                    "host": watch.summary()}) + "\n")
+
+    runner._run_train_steps = watched
     argv = ["--scenarios", "smoke", "--modes", "batch,stream", "--device",
             dev.type, "--out", out]
     if dev.type == "cpu":
         argv += ["--steps", "160"]
     return evaluate.main(argv)
+
+
+def host_totals(hosts) -> dict:
+    """Over cells' host summaries: stalls a cell; in a stall, the main
+    thread's CPU ms, the sampler's and its /proc reads' ms inside it, and
+    the share of stalls a /proc read overlapped, beside the share of all
+    steps; the /proc reads' p50 and max ms; the commonest top frames in the
+    stalls' stacks (main thread, and the others)."""
+    import numpy as np
+
+    stalls = [r for h in hosts for r in h["stall_rows"]]
+    main_top, other_top = pycollections.Counter(), pycollections.Counter()
+    for h in hosts:
+        for threads in h["stall_stacks"].values():
+            for label, frames in threads.items():
+                (main_top if label == "main" else other_top)[
+                    f"{label}: {frames[0] if frames else '?'}"] += 1
+
+    def avg(key):
+        return (round(float(np.mean([r[key] for r in stalls])), 3)
+                if stalls else None)
+
+    n_stalls = sum(h["stalls"] for h in hosts)
+
+    def of_stalls(key):
+        return f"{sum(h[key] for h in hosts)}/{n_stalls}"
+
+    reads = [h["proc_read"] for h in hosts if h["proc_read"]]
+    return {
+        "stalls_per_cell": float(np.mean([h["stalls"] for h in hosts]))
+        if hosts else 0.0,
+        "stall_excess_ms": avg("excess_ms"),
+        "stall_main_cpu_ms": avg("main_cpu_ms"),
+        "stall_sampler_ms": avg("sampler_ms"),
+        "stall_proc_read_ms": avg("proc_read_ms"),
+        "stall_main_ivcs_share": float(np.mean(
+            [r["ivcs"] > 0 for r in stalls])) if stalls else None,
+        "stall_fn_ms": avg("fn_ms"), "stall_sync_ms": avg("sync_ms"),
+        "stall_graph_ms": avg("graph_ms"),
+        "typical_fn_sync_graph_ms": [round(float(np.mean(
+            [h["typical_mean"][k] for h in hosts if h["typical_mean"]])), 3)
+            for k in ("fn_ms", "sync_ms", "graph_ms")] if hosts else None,
+        "stall_spin_gap_ms": avg("spin_gap_ms"),
+        "stalls_in_a_proc_read": of_stalls("stalls_in_a_proc_read"),
+        "stalls_in_a_spin_gap": of_stalls("stalls_in_a_spin_gap"),
+        "steps_in_a_spin_gap_share": round(float(
+            sum(h["steps_in_a_spin_gap"] for h in hosts)
+            / max(sum(h.get("steps", 0) for h in hosts), 1)), 4),
+        "spin_gaps_per_s": round(float(
+            sum(h["spin_gaps"] for h in hosts)
+            / max(sum(h["span_s"] for h in hosts), 1e-9)), 3),
+        "steps_in_a_proc_read_share": round(float(
+            sum(h["steps_in_a_proc_read"] for h in hosts)
+            / max(sum(h.get("steps", 0) for h in hosts), 1)), 4),
+        "proc_read_p50_ms": round(float(np.median(
+            [r["p50_ms"] for r in reads])), 3) if reads else None,
+        "proc_read_max_ms": max(r["max_ms"] for r in reads)
+        if reads else None,
+        "stall_main_top": main_top.most_common(5),
+        "stall_other_top": other_top.most_common(8)}
 
 
 def main(argv=None) -> int:
@@ -349,7 +865,21 @@ def main(argv=None) -> int:
     ap.add_argument("--fixture", default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cpu: the reduced model, a dry run of the script")
+    ap.add_argument("--condition", choices=CONDITIONS, default="base",
+                    help="a diagnostic the cells run under (docstring)")
+    ap.add_argument("--scenario", default="clean_control",
+                    help="the cell's scenario (pass B: runtime_stall)")
+    ap.add_argument("--out", default=os.path.join("chiprun_out",
+                                                  "clean_control"),
+                    help="each step's counters and the watchdog's stacks")
+    ap.add_argument("--spin", type=float, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--stacks", action="store_true",
+                    help="arm the faulthandler watchdog (docstring: it "
+                         "crashed processes on the card's Python 3.12.3)")
     args = ap.parse_args(argv)
+    if args.spin is not None:
+        return spin(args.spin)
 
     import numpy as np
     import torch
@@ -360,10 +890,25 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke's passes
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(args.device)
-    if args.one_run:
-        return one_run(args.one_run, dev)
+    clock_sampler()
+    clock_step_phases()
+    apply_condition(args.condition)
     if args.runs:
-        return evaluator_runs(args.runs, dev)
+        return evaluator_runs(args.runs, dev, args)
+    SPINNER.append(Spinner(args.out, f"{args.label}_{os.getpid()}"))
+    try:
+        if args.one_run:
+            return one_run(args.one_run, dev, args.out, args.stacks)
+        return cells_main(args, dev, ap)
+    finally:
+        if SPINNER:
+            SPINNER.pop().close()
+
+
+def cells_main(args, dev, ap) -> int:
+    """``--mode``: the cells of pass A or B, one line each, and a summary."""
+    import numpy as np
+
     if args.mode is None:
         ap.error("--mode is required without --runs")
 
@@ -376,35 +921,23 @@ def main(argv=None) -> int:
     if args.after_session:
         print(json.dumps({"after_session": threaded_session(dev)}),
               flush=True)
-    one = (pass_a_cell(args.mode, dev, n) if args.pass_ == "a"
-           else pass_b_cell(args.mode, dev, n, args.cells))
-    cells, fixture_out = [], None
+    one = (pass_a_cell(args.mode, dev, n, args.scenario)
+           if args.pass_ == "a"
+           else pass_b_cell(args.mode, dev, n, args.cells, args.scenario))
+    cells, fixture_out, prior_s = [], None, 0.02
+    tag = f"{args.label}_{args.pass_}_{args.scenario}_{args.mode}_" \
+          f"{args.condition}"
     for cell in range(args.cells):
-        step_s, spans = [], []
-
-        def timed(session):  # as chip_smoke's watched_cell
-            observe = session.observe_step_fn
-
-            def timed_observe(fn, **kw):
-                monitored = observe(fn, **kw)
-
-                def call(*a):
-                    t0 = time.perf_counter()
-                    out = monitored(*a)
-                    t1 = time.perf_counter()
-                    step_s.append(t1 - t0)
-                    spans.append((t0, t1))
-                    return out
-                return call
-
-            session.observe_step_fn = timed_observe
-
+        watch = StepWatch(args.out, f"{tag}_cell{cell}", prior_s,
+                          args.stacks)
         steal0 = steal_s()
         with recorded() as got, collections() as gcs:
-            run = one(timed)
+            run = one(lambda session: watch_session(session, watch))
         report = run.report
         row = matrix._row(run)
-        ms = 1e3 * np.asarray(step_s)
+        spans = watch.spans
+        ms = np.asarray([p[0] for p in watch.phases])  # the STEP rows
+        prior_s = float(np.median(ms)) / 1e3
         slow = np.flatnonzero(ms > np.median(ms) + SLOW_MS)
         incs = {i.incident_id: i for i in report.incidents}
         diagnosed = []
@@ -418,6 +951,8 @@ def main(argv=None) -> int:
                                       args.label)
         line = {"cell": cell, "label": args.label, "pass": args.pass_,
                 "after_session": args.after_session, "mode": args.mode,
+                "scenario": args.scenario, "condition": args.condition,
+                "switch_interval_s": sys.getswitchinterval(),
                 "far": row["metrics"]["false_alarm_rate"],
                 "diagnoses": [d.fault_kind for d in report.diagnoses],
                 "incidents": len(report.incidents),
@@ -436,7 +971,8 @@ def main(argv=None) -> int:
                                   for k, v in report.layers.items()
                                   if len(v.anomalous_steps)},
                 "lasting_shift": lasting_shift(report, run.eval_start, n),
-                "diagnosed": diagnosed, "wall_s": row["wall_s"]}
+                "diagnosed": diagnosed, "wall_s": row["wall_s"],
+                "host": watch.summary()}
         print(json.dumps(line), flush=True)
         cells.append(line)
         del run, report
@@ -449,6 +985,7 @@ def main(argv=None) -> int:
     print(json.dumps({"summary": {
         "label": args.label, "pass": args.pass_,
         "after_session": args.after_session, "mode": args.mode,
+        "scenario": args.scenario, "condition": args.condition,
         "cells": len(cells),
         "diagnosed_cells": sum(bool(c["diagnoses"]) for c in cells),
         "lasting_shift_cells": sum(c["lasting_shift"] for c in cells),
@@ -458,6 +995,7 @@ def main(argv=None) -> int:
                                               for c in cells])),
         "gc_over_1ms_in_step_per_cell": float(np.mean(
             [c["gc"]["over_1ms_in_step"] for c in cells])),
+        **host_totals([c["host"] for c in cells]),
         "card": card()}}), flush=True)
     return 0
 

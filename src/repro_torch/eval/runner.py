@@ -16,7 +16,12 @@ exactly as in the paper's testbed).
 On a CUDA device the synthetic step is captured once in a CUDA graph and
 replayed (`GraphedSynthStep`), as the reference jits it into one executable:
 eager, its launches would be paid for on the host, and the step time would
-be the host's. On the CPU it runs eagerly.
+be the host's. On the CPU a cell's step (the synthetic step, the decode
+loop, `run_model_cell`'s step) runs eagerly on one intra-op thread
+(`one_cpu_thread`), as the reference's CPU executable runs it: spread over
+torch's thread pool, each of its parallel regions waits for the slowest
+thread, and on a loaded host a descheduled pool thread stretched steps of
+~1 ms by tens of ms inside the clean prefix the detectors are fitted on.
 
 The ``serve`` workload is the GPT-2 decode loop observed the same way, and
 the ``request`` workload the continuous-batching engine on a virtual clock,
@@ -31,6 +36,7 @@ on the live region after it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -183,6 +189,21 @@ class ScenarioRun:
 def _synth_iter(x: torch.Tensor) -> torch.Tensor:
     """One of `_synth_step`'s four normalised products."""
     return (x @ torch.sin(x)) / torch.clamp_min(x.abs().sum(), 1.0)
+
+
+@contextlib.contextmanager
+def one_cpu_thread(device: torch.device):
+    """On the CPU, torch's intra-op parallelism is 1 for the block (the
+    process's setting comes back after it); elsewhere nothing changes."""
+    threads = torch.get_num_threads()
+    if device.type != "cpu" or threads == 1:
+        yield
+        return
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _synth_step(x: torch.Tensor) -> torch.Tensor:
@@ -338,7 +359,7 @@ def run_model_cell(session: Session, scenario: Scenario, n_steps: int,
     injector = scenario.injector(n_steps)
     metrics: List[dict] = []
     t0 = time.perf_counter()
-    with session.monitoring():
+    with one_cpu_thread(dev), session.monitoring():
         session.collector["collective"].register_compiled(_FAKE_HLO)
         fn = session.observe_step_fn(
             step_fn, sample_args=(state, data.batch(0)), mem_gb=0.5)
@@ -387,18 +408,21 @@ def _run_train_steps(session: Session, injector, n_steps: int,
                      ) -> np.ndarray:
     x0 = torch.ones(SYNTH_SHAPE, device=session.device) * (1.0 + 0.01 * seed)
     step = GraphedSynthStep()
-    step(x0)  # capture outside the probes (the reference compiles there)
-    if x0.device.type == "cuda":
-        torch.cuda.synchronize(x0.device)
-    with session.monitoring():
-        session.collector["collective"].register_compiled(_FAKE_HLO)
-        fn = session.observe_step_fn(step, sample_args=(x0,), mem_gb=0.5)
-        state = {"x": x0}
+    with one_cpu_thread(x0.device):
+        step(x0)  # capture outside the probes (the reference compiles there)
+        if x0.device.type == "cuda":
+            torch.cuda.synchronize(x0.device)
+        with session.monitoring():
+            session.collector["collective"].register_compiled(_FAKE_HLO)
+            fn = session.observe_step_fn(step, sample_args=(x0,),
+                                         mem_gb=0.5)
+            state = {"x": x0}
 
-        def one_step(s):
-            state["x"] = fn(state["x"])
+            def one_step(s):
+                state["x"] = fn(state["x"])
 
-        return _drive(session, injector, n_steps, eval_start, cfg, one_step)
+            return _drive(session, injector, n_steps, eval_start, cfg,
+                          one_step)
 
 
 def _run_serve_steps(session: Session, injector, n_steps: int,
@@ -409,26 +433,29 @@ def _run_serve_steps(session: Session, injector, n_steps: int,
     batch_size = 2
     caches = make_caches(batch_size, n_steps + 1)
     tok0 = np.ones((batch_size, 1), np.int32)
-    # the first calls outside the probes (the reference compiles there; the
-    # graph is captured on the third, over these caches: rows they leave
-    # behind are rewritten at their position before it turns valid)
-    for i in range(3):
-        step(params, {"tokens": tok0}, caches, i)
-    if session.device.type == "cuda":
-        torch.cuda.synchronize(session.device)
-    state = {"tok": tok0, "caches": caches}
-    with session.monitoring():
-        fn = session.observe_step_fn(
-            step, sample_args=(params, {"tokens": tok0}, caches, 0),
-            mem_gb=0.5)
+    with one_cpu_thread(session.device):
+        # the first calls outside the probes (the reference compiles there;
+        # the graph is captured on the third, over these caches: rows they
+        # leave behind are rewritten at their position before it turns
+        # valid)
+        for i in range(3):
+            step(params, {"tokens": tok0}, caches, i)
+        if session.device.type == "cuda":
+            torch.cuda.synchronize(session.device)
+        state = {"tok": tok0, "caches": caches}
+        with session.monitoring():
+            fn = session.observe_step_fn(
+                step, sample_args=(params, {"tokens": tok0}, caches, 0),
+                mem_gb=0.5)
 
-        def one_step(s):
-            logits, state["caches"] = fn(params, {"tokens": state["tok"]},
-                                         state["caches"], s)
-            nxt = logits[:, -1, : model_cfg.vocab_size].argmax(-1)
-            state["tok"] = nxt.to(torch.int32).cpu().numpy()[:, None]
+            def one_step(s):
+                logits, state["caches"] = fn(params, {"tokens": state["tok"]},
+                                             state["caches"], s)
+                nxt = logits[:, -1, : model_cfg.vocab_size].argmax(-1)
+                state["tok"] = nxt.to(torch.int32).cpu().numpy()[:, None]
 
-        return _drive(session, injector, n_steps, eval_start, cfg, one_step)
+            return _drive(session, injector, n_steps, eval_start, cfg,
+                          one_step)
 
 
 def _run_request_steps(session: Session, injector, n_steps: int,

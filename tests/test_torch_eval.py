@@ -646,6 +646,35 @@ def test_run_scenario_end_to_end_batch():
     assert "clean_control" in text and "FAR" in text
 
 
+def test_cpu_cell_runs_its_step_on_one_intra_op_thread(monkeypatch):
+    """On the CPU every monitored step of a cell (and the call before the
+    window) runs at one intra-op thread, as the reference's CPU executable
+    runs it, and the process's setting is back after the cell; another
+    device's setting is left alone. The mechanism behind
+    `test_run_scenario_end_to_end_batch`'s failures under a loaded host:
+    at two threads each parallel region of a ~1 ms step waited for the
+    slower thread, and steps tens of ms long landed in the fitted prefix."""
+    seen = []
+    synth = runner._synth_iter
+
+    def counted(x):
+        seen.append(torch.get_num_threads())
+        return synth(x)
+
+    monkeypatch.setattr(runner, "_synth_iter", counted)
+    before = torch.get_num_threads()
+    assert before > 1  # this module's setting, as the driver's workers run
+    runner.run_scenario(chaos.get_scenario("clean_control"), "batch",
+                        runner.EvalConfig(step_sleep=0.0), n_steps=40,
+                        seed=0, device=CPU)
+    # the call before the window, the operator probe's meta-tensor record
+    # of the step, and the 40 monitored steps: four products each
+    assert len(seen) == 4 * (1 + 1 + 40) and set(seen) == {1}
+    assert torch.get_num_threads() == before
+    with runner.one_cpu_thread(torch.device("meta")):
+        assert torch.get_num_threads() == before
+
+
 def test_run_model_cell_drives_a_train_step_as_run_scenario_does():
     """`runner.run_model_cell` under a `runner.scenario_spec` session (how
     chip_smoke.py's eval pass B and scripts/clean_control_rate.py build a
