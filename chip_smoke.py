@@ -118,7 +118,36 @@ Phases, each printing one JSON line of its own:
    own gate, `repro/launch/evaluate.py:140-152`). Listed under ``unmet``,
    not enforced: pass B's mean blamed-kind accuracy under the reference's
    0.5.
-10. ``serve_path``: the serve plane at full width (GPT-2 124M, bf16), in a
+10. ``ckpt_path``: checkpointing through `repro_torch.launch.train` at full
+   width (GPT-2 124M, bf16, batch 8, sequence 128, the step graphed), the
+   stream session with ``--inject-faults``, in a process of its own
+   (``chip_smoke.py --ckpt-path OUT``) that starts each run in one more
+   (``--ckpt-run OUT DIR``): 120 steps with ``--checkpoint-dir`` and a
+   checkpoint every 40; the same run stopped by SIGINT, sent from outside
+   once its log shows step 70 (the launcher ends the step in flight,
+   raises KeyboardInterrupt and saves); and a run resumed from that
+   directory. Gates: the resumed run starts at the stopped run's last save
+   and the two runs' losses equal the uninterrupted run's bit for bit (a
+   relative difference of at most 1e-6 is reported under ``unmet``; more
+   fails); no ``.tmp`` staging directory is left; every checkpoint_now the
+   governor asks for is followed by a save at that step, among them the
+   one of a python_latency diagnosis planted in the uninterrupted run at
+   step 50's cadence point (a clean run rarely asks for one); finite losses;
+   specialised kernels only, no plain call. Printed: each save's host
+   stall and the next step's excess over the median step, the background
+   writes' seconds, the checkpoint's bytes, the launches (GMM kernels run
+   only where the session sweeps).
+11. ``obs_path``: the operator surface, in a process of its own
+   (``--obs-path OUT``): `repro_torch.launch.train` at full width in
+   stream mode (240 steps, ``--inject-faults``) with ``--metrics-port 0
+   --board-out``, a thread scraping ``/metrics`` and ``/healthz`` every
+   0.5 s while it runs. Gates: at least three scrapes, each accepted by
+   `repro_torch.obs.parser`, none failing before the endpoint stops; the
+   compile-cache families (`SHAPE_CACHE`) counted; ``/healthz`` answered;
+   the board written, its final render without a refresh; gmm_update
+   launched, specialised only, no plain call. Its steps/s is printed
+   beside ``session_path``'s stream rate.
+12. ``serve_path``: the serve plane at full width (GPT-2 124M, bf16), in a
    child process of its own (``chip_smoke.py --serve-path OUT``, for pass
    A's reason), in four parts. (a) One request stream through two 4-slot
    continuous engines, the slot step a CUDA graph in one and eager in the
@@ -145,9 +174,9 @@ Phases, each printing one JSON line of its own:
    and serve_degraded_device, both modes, 240 decode steps: each cell's
    kernels as pass B's; mean blamed-kind accuracy under 0.5 is listed
    under ``unmet``.
-11. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
+13. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
    K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
-12. ``profile``: torch.profiler over 5 full-width training steps, one
+14. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
@@ -162,7 +191,7 @@ device time per wrapper call, the plain version's, its bound, and beside
 them the launch alone, the eager per-call time, the kernels and memsets a
 wrapper call puts on the stream, counted with torch.profiler, which must be
 one kernel and, for the EM kernels, one memset, and the variants each path
-launched, the fleet, eval and serve paths' among them), the card's name and power limit as
+launched, the fleet, eval, ckpt, obs and serve paths' among them), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero before that line. TF32 is off for matmuls
@@ -632,6 +661,59 @@ def check_graphed_step(steps=6):
         raise SmokeFailure("the train step was never captured")
     del params, plist, graphed
     return worst_loss, worst_grad
+
+
+def check_graphed_train_step(steps=6):
+    """The whole train step — forward, backward and the AdamW update —
+    replayed as one CUDA graph against the eager step with host floats, at
+    full width from the same seed: each step's loss within 1e-3 relative,
+    and the parameters after the last step within 1e-2 of how far the eager
+    step moved them (model-wide norms: Adam's update is scale-free, so an
+    entry whose gradient sits at the noise floor may step the other way).
+    Returns the largest loss error and the parameters' error."""
+    import torch
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Runtime, batch_to_device
+    from repro_torch.train.step import (init_train_state, make_optimizer_for,
+                                        make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = get_arch("gpt2")
+    opt = make_optimizer_for(TrainConfig(learning_rate=1e-3,
+                                         total_steps=steps, warmup_steps=5))
+    runs = []
+    for graph in (True, False):
+        data = SyntheticLMData(cfg, seq_len=128, global_batch=8, seed=0)
+        state = init_train_state(cfg, opt, seed=0, device=dev)
+        init = [p.detach().clone() for p in state.params.values()]
+        fn = make_train_step(cfg, Runtime(torch.bfloat16), opt,
+                             cuda_graph=graph)
+        losses = []
+        for s in range(steps):
+            state, m = fn(state, batch_to_device(data.batch(s), dev))
+            losses.append(float(m["loss"]))
+        runs.append((list(state.params.values()), losses, init))
+        del state, fn, data
+    (pg, lg, _), (pe, le, init) = runs
+
+    def norm(ts):
+        return float(torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(ts))))
+
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(lg, le))
+    with torch.no_grad():
+        rel_params = norm(torch._foreach_sub(pg, pe)) / norm(
+            torch._foreach_sub(pe, init))
+    del runs, pg, pe, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (rel_loss <= 1e-3 and rel_params <= 1e-2):
+        raise SmokeFailure(f"the graphed train step differs from the eager "
+                           f"one: losses {lg} vs {le}, parameters "
+                           f"{rel_params} of their move")
+    return rel_loss, rel_params
 
 
 def host_ms(fn, reps):
@@ -1685,16 +1767,16 @@ def eval_pass_b(reset_counts, read_counts, read_all_variants):
             "seconds": time.perf_counter() - t_pass}, lines
 
 
-def child_main(flag, out_path) -> int:
-    """``chip_smoke.py FLAG OUT``: one of `CHILDREN` alone, in a process of
-    its own, with TF32 off as in `main`; what it returns is written to OUT
-    as JSON."""
+def child_main(flag, out_path, *extra) -> int:
+    """``chip_smoke.py FLAG OUT [ARG]``: one of `CHILDREN` alone, in a
+    process of its own, with TF32 off as in `main`; what it returns is
+    written to OUT as JSON."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    got = CHILDREN[flag](*counters())
+    got = CHILDREN[flag](*counters(), *extra)
     with open(out_path, "w") as f:  # NumPy scalars as Python numbers
         json.dump(got, f, default=lambda o: o.item())
     return 0
@@ -2225,9 +2307,385 @@ def serve_phase(reset_counts, read_counts, read_all_variants):
     return out
 
 
-# what ``chip_smoke.py FLAG OUT`` runs in a process of its own (`isolated`)
+# the checkpoint phase: three runs of the launcher's stream session at full
+# width (uninterrupted; stopped by SIGINT once step CKPT_SIGINT_AT is
+# logged; resumed from the second's checkpoints), a checkpoint every
+# CKPT_EVERY steps
+CKPT_STEPS = 120
+CKPT_EVERY = 40
+CKPT_SIGINT_AT = 70
+CKPT_LOG_EVERY = 10
+# the uninterrupted run's diagnosis planted at this stream cadence point
+# (flush_every 25): python_latency, whose governor action is checkpoint_now
+CKPT_PLANT_AT = 50
+
+
+def ckpt_argv(ckpt_dir):
+    spec = {"mode": "stream", "probe_options": {
+        "python": {"sample_every": 25}, "device": {"interval": 0.05}}}
+    return ["--arch", "gpt2", "--device", "cuda", "--steps", str(CKPT_STEPS),
+            "--batch", "8", "--seq", "128", "--inject-faults",
+            "--log-every", str(CKPT_LOG_EVERY), "--monitor-spec",
+            json.dumps(spec), "--checkpoint-dir", ckpt_dir,
+            "--checkpoint-every", str(CKPT_EVERY)]
+
+
+def plant_checkpoint_now(step):
+    """A python_latency diagnosis added to the session's outcome at
+    ``step``'s cadence point: the governor's policy for it is
+    checkpoint_now, which the launcher must follow with a save (the clean
+    run's own diagnoses rarely ask for one)."""
+    from repro_torch.core.governor import Governor
+    from repro_torch.diagnosis.engine import Diagnosis
+    from repro_torch.session.session import Session
+
+    planted = Diagnosis(incident_id=0, fault_kind="python_latency",
+                        family="straggler", confidence=0.9, severity=0.5,
+                        blamed_nodes=[0], causal_chain=[], action=None,
+                        steps=[step - 1, step], t_start=0.0, t_end=0.0,
+                        candidates={"python_latency": 0.9}, evidence={})
+    planted.action = Governor().act(planted)
+    detect = Session._detect_step
+
+    def detect_planted(self, at, out):
+        detect(self, at, out)
+        if at == step:
+            out.diagnoses.append(planted)
+
+    Session._detect_step = detect_planted
+
+
+def ckpt_run(reset_counts, read_counts, read_all_variants, ckpt_dir,
+             plant_at=""):
+    """``chip_smoke.py --ckpt-run OUT DIR [STEP]``: one run of the
+    checkpoint phase, `repro_torch.launch.train.train` in this process with
+    its checkpoints in DIR (SIGINT stops it at the end of the step in
+    flight, the launcher's handler), a checkpoint_now planted at STEP when
+    given. Returns its losses (as float hex), saves, actions and
+    launches."""
+    from repro_torch.launch import train
+
+    if plant_at:
+        plant_checkpoint_now(int(plant_at))
+    reset_counts()
+    out = train.train(train.parser().parse_args(ckpt_argv(ckpt_dir)))
+    launches, plain = read_counts()
+    return {"losses": [float(v).hex() for v in out["losses"]],
+            "losses_finite": all(math.isfinite(v) for v in out["losses"]),
+            "start_step": out["start_step"],
+            "interrupted": out["interrupted"], "saves": out["saves"],
+            "actions": [a.kind for a in out["actions"]],
+            "action_steps": out["action_steps"],
+            "step_end_s": out["step_end_s"],
+            "steps_per_s": out["steps_per_s"],
+            "diagnoses": [d.fault_kind for d in out["report"].diagnoses],
+            "launches": launches, "plain_calls": plain,
+            "variants": read_all_variants()}
+
+
+def run_ckpt(ckpt_dir, sigint_at=None, plant_at=None, timeout=600):
+    """One `ckpt_run` in a process of its own; with ``sigint_at``, SIGINT
+    goes to it once its log shows that step (from outside, as a scheduler
+    preempts a job); with ``plant_at``, a checkpoint_now is planted there.
+    Returns what it wrote, ``rc`` added."""
+    import signal
+
+    out = ckpt_dir.rstrip("/") + (".cut.json" if sigint_at is not None
+                                  else ".run.json")
+    if os.path.exists(out):
+        os.remove(out)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out + ".err", "w+") as err_f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--ckpt-run", out, ckpt_dir]
+                                + ([str(plant_at)] if plant_at else []),
+                                stdout=subprocess.PIPE, stderr=err_f,
+                                text=True)
+        tail, sent = [], False
+        t0 = time.perf_counter()
+        for line in proc.stdout:
+            tail = (tail + [line])[-40:]
+            parts = line.split()
+            if sigint_at is not None and not sent \
+                    and parts[:1] == ["step"] and int(parts[1]) >= sigint_at:
+                proc.send_signal(signal.SIGINT)
+                sent = True
+            if time.perf_counter() - t0 > timeout:
+                proc.kill()
+                break
+        rc = proc.wait()
+        err_f.seek(0)
+        err = err_f.read()
+    if rc or not os.path.exists(out):
+        raise SmokeFailure(f"ckpt_path: a run exited {rc}: {err[-2000:]} "
+                           f"{''.join(tail)[-1500:]}")
+    with open(out) as f:
+        got = json.load(f)
+    got.update(rc=rc, sigint_sent=sent)
+    return got
+
+
+def save_stalls(run):
+    """Per save of a run: the seconds it held the loop on the host, and
+    the ms the loop's next step took past the run's median step."""
+    import numpy as np
+
+    ends = np.asarray(run["step_end_s"])
+    dur = np.diff(ends)
+    med = float(np.median(dur)) if len(dur) else 0.0
+    out = []
+    for s in run["saves"]:
+        j = s["step"] - 1 - run["start_step"]  # the step it followed
+        nxt = float(dur[j]) if 0 <= j < len(dur) else None
+        out.append({"step": s["step"], "reason": s["reason"],
+                    "host_stall_ms": 1e3 * s["stall_s"],
+                    "next_step_excess_ms": (1e3 * (nxt - med)
+                                            if nxt is not None else None),
+                    "write_s": s.get("write_s"), "bytes": s["bytes"]})
+    return out
+
+
+def ckpt_phase(reset_counts, read_counts, read_all_variants):
+    """Phase ``ckpt_path`` (in a process of its own, each run in one more):
+    the uninterrupted run, the run stopped by SIGINT, and its resume.
+    Returns the runs and what the gates read; `check_ckpt` holds them."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "results", "ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    full = run_ckpt(os.path.join(root, "full"), plant_at=CKPT_PLANT_AT)
+    cut = run_ckpt(os.path.join(root, "cut"), sigint_at=CKPT_SIGINT_AT)
+    resumed = run_ckpt(os.path.join(root, "cut"))
+    left = {d: sorted(os.listdir(os.path.join(root, d)))
+            for d in ("full", "cut")}
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {"full": full, "cut": cut, "resumed": resumed}
+    for r in runs.values():
+        r["save_stalls"] = save_stalls(r)
+        del r["step_end_s"]
+    out = {"launches": {}, "variants": {}}
+    for r in runs.values():
+        tally(out, r["launches"], r["variants"])
+    out.update(runs=runs, dirs_left=left,
+               seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def ckpt_line(res):
+    """The phase's line: whether the resume equals the uninterrupted run,
+    the saves' stalls, write seconds and bytes, the governor's asks."""
+    import numpy as np
+
+    runs = res["runs"]
+    full = [float.fromhex(v) for v in runs["full"]["losses"]]
+    both = [float.fromhex(v) for v in runs["cut"]["losses"]
+            + runs["resumed"]["losses"]]
+    n = min(len(full), len(both))
+    diff = (float(np.max(np.abs(np.asarray(full[:n]) - np.asarray(both[:n]))
+                         / np.maximum(np.abs(full[:n]), 1e-30)))
+            if n else None)
+    saves = [s for r in runs.values() for s in r["save_stalls"]]
+    return {"phase": "ckpt_path", "steps": CKPT_STEPS,
+            "every": CKPT_EVERY, "sigint_after_step": CKPT_SIGINT_AT,
+            "cut_at": runs["resumed"]["start_step"],
+            "interrupted": runs["cut"]["interrupted"],
+            "resume_bitwise": full == both,
+            "resume_max_rel_diff": diff, "losses": [len(full), len(both)],
+            "saves": saves,
+            "save_host_stall_ms": [round(s["host_stall_ms"], 3)
+                                   for s in saves],
+            "save_next_step_excess_ms": [
+                round(s["next_step_excess_ms"], 3) for s in saves
+                if s["next_step_excess_ms"] is not None],
+            "write_s": [round(s["write_s"], 3) for s in saves
+                        if s["write_s"] is not None],
+            "checkpoint_bytes": max(s["bytes"] for s in saves),
+            "checkpoint_now_planted": {"full": CKPT_PLANT_AT},
+            "checkpoint_now": {k: [s for a, s in zip(r["actions"],
+                                                     r["action_steps"])
+                                   if a == "checkpoint_now"]
+                               for k, r in runs.items()},
+            "diagnoses": {k: r["diagnoses"] for k, r in runs.items()},
+            "steps_per_s": {k: r["steps_per_s"] for k, r in runs.items()},
+            "dirs_left": res["dirs_left"], "launches": res["launches"],
+            "variants": res["variants"], "seconds": res["seconds"]}
+
+
+def check_ckpt(line, runs):
+    """The resumed run's losses are the uninterrupted run's bit for bit
+    (a 1e-6 relative difference at most would be reported, with its
+    cause, as ``unmet``); no staging directory is left; every
+    checkpoint_now the governor asked for is followed by a save at that
+    step, the one planted in the uninterrupted run among them; finite
+    losses; the run stopped by SIGINT did stop, and saved."""
+    unmet = []
+    if not all(r["losses_finite"] for r in runs.values()):
+        raise SmokeFailure("ckpt_path: non-finite loss")
+    if not line["interrupted"] or not runs["cut"]["sigint_sent"]:
+        raise SmokeFailure(f"ckpt_path: the SIGINT run did not stop: "
+                           f"{line['interrupted']}")
+    if line["cut_at"] != runs["cut"]["saves"][-1]["step"]:
+        raise SmokeFailure(f"ckpt_path: resumed at {line['cut_at']}, the "
+                           f"cut run saved {runs['cut']['saves'][-1]}")
+    if line["losses"] != [CKPT_STEPS, CKPT_STEPS]:
+        raise SmokeFailure(f"ckpt_path: losses {line['losses']}")
+    if not line["resume_bitwise"]:
+        if line["resume_max_rel_diff"] is None \
+                or line["resume_max_rel_diff"] > 1e-6:
+            raise SmokeFailure(f"ckpt_path: the resumed run's losses differ "
+                               f"from the uninterrupted run's by "
+                               f"{line['resume_max_rel_diff']}")
+        unmet.append("resume within 1e-6, not bitwise")
+    if CKPT_PLANT_AT not in line["checkpoint_now"]["full"]:
+        raise SmokeFailure(f"ckpt_path: the checkpoint_now planted at step "
+                           f"{CKPT_PLANT_AT} was not acted on: "
+                           f"{line['checkpoint_now']}")
+    tmp = [f for d in line["dirs_left"].values() for f in d
+           if f.endswith(".tmp")]
+    if tmp:
+        raise SmokeFailure(f"ckpt_path: staging dirs left: {tmp}")
+    for k, r in runs.items():
+        saved = {s["step"] for s in r["saves"]}
+        for a, s in zip(r["actions"], r["action_steps"]):
+            if a == "checkpoint_now" and s + 1 not in saved:
+                raise SmokeFailure(f"ckpt_path {k}: checkpoint_now after "
+                                   f"step {s} and no save at {s + 1}: "
+                                   f"{sorted(saved)}")
+        if any(r["plain_calls"].values()) or any(
+                v["general"] for v in r["variants"].values()):
+            raise SmokeFailure(f"ckpt_path {k}: plain calls "
+                               f"{r['plain_calls']} or general kernels "
+                               f"{r['variants']}")
+    return unmet
+
+
+# the operator-surface phase: the launcher's stream session with the
+# metrics endpoint and the board, scraped every OBS_SCRAPE_S meanwhile
+OBS_STEPS = 240
+OBS_SCRAPE_S = 0.5
+
+
+def obs_phase(reset_counts, read_counts, read_all_variants):
+    """Phase ``obs_path`` (a process of its own): `repro_torch.launch.train`
+    in stream mode at full width with ``--metrics-port 0 --board-out``;
+    a thread scrapes ``/metrics`` (each parsed by `repro_torch.obs.parser`)
+    and ``/healthz`` while it runs. Returns what the gates read."""
+    import threading
+    import urllib.request
+
+    from repro_torch.launch import train
+    from repro_torch.obs import httpd, parse_exposition
+
+    t_phase = time.perf_counter()
+    servers = []
+    start = httpd.MetricsServer.start
+
+    def start_kept(self):  # the endpoint, once bound
+        out = start(self)
+        servers.append(self)
+        return out
+
+    httpd.MetricsServer.start = start_kept
+    board = os.path.join(ROOT, "results", "obs_board.html")
+    if os.path.exists(board):
+        os.remove(board)
+    spec = {"mode": "stream", "probe_options": train.LEGACY_PROBE_OPTIONS}
+    args = train.parser().parse_args(
+        ["--arch", "gpt2", "--device", "cuda", "--steps", str(OBS_STEPS),
+         "--batch", "8", "--seq", "128", "--inject-faults", "--log-every",
+         "0", "--monitor-spec", json.dumps(spec), "--metrics-port", "0",
+         "--board-out", board])
+    scrapes, errors, health = [], [], []
+    done = threading.Event()
+
+    def scrape():
+        while not done.wait(OBS_SCRAPE_S):
+            if not servers:
+                continue
+            url = servers[0].url
+            try:
+                with urllib.request.urlopen(url + "/metrics",
+                                            timeout=5) as r:
+                    exp = parse_exposition(r.read().decode("utf-8"))
+                hits = exp.sample("eacgm_detect_compile_cache_hits_total")
+                misses = exp.sample(
+                    "eacgm_detect_compile_cache_misses_total")
+                scrapes.append({"t": time.perf_counter() - t_phase,
+                                "families": len(exp.family_names()),
+                                "cache_hits": hits.value if hits else None,
+                                "cache_misses": (misses.value if misses
+                                                 else None)})
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=5) as r:
+                    health.append(json.loads(r.read().decode("utf-8")))
+            except Exception as e:  # a gate reads it
+                if servers[0]._server is not None:  # not yet stopped
+                    errors.append(repr(e))
+
+    thread = threading.Thread(target=scrape, name="obs-scraper",
+                              daemon=True)
+    thread.start()
+    reset_counts()
+    try:
+        out = train.train(args)
+    finally:
+        done.set()
+        thread.join(timeout=30)
+        httpd.MetricsServer.start = start
+    launches, plain = read_counts()
+    with open(board) as f:
+        final = f.read()
+    report = out["report"]
+    return {"steps": OBS_STEPS,
+            "url": servers[0].url if servers else None,
+            "scrapes": len(scrapes), "scrape_errors": errors[:5],
+            "first_scrapes": scrapes[:3], "last_scrape": scrapes[-1:],
+            "healthz": health[-1] if health else None,
+            "healthz_answers": len(health),
+            "board_bytes": len(final),
+            "board_refreshes": 'http-equiv="refresh"' in final,
+            "board_has_fleet": 'id="fleet"' in final,
+            "sink_outputs": report.sink_outputs,
+            "losses_finite": all(math.isfinite(v) for v in out["losses"]),
+            "steps_per_s": out["steps_per_s"],
+            "steady_steps_per_s": steady_steps_per_s(out["step_end_s"]),
+            "launches": launches, "plain_calls": plain,
+            "variants": read_all_variants(),
+            "seconds": time.perf_counter() - t_phase}
+
+
+def check_obs(line):
+    """At least three scrapes, every one parsed; the compile-cache
+    (SHAPE_CACHE) families counted; /healthz answered; the board written
+    and its final render static; the kernels launched, no plain call."""
+    if line["scrapes"] < 3 or line["scrape_errors"]:
+        raise SmokeFailure(f"obs_path: {line['scrapes']} scrapes, errors "
+                           f"{line['scrape_errors']}")
+    last = line["last_scrape"][0]
+    if not ((last["cache_hits"] or 0) + (last["cache_misses"] or 0)):
+        raise SmokeFailure(f"obs_path: SHAPE_CACHE families read 0: {last}")
+    if not line["healthz_answers"] or line["healthz"].get("status") is None:
+        raise SmokeFailure(f"obs_path: /healthz: {line['healthz']}")
+    if line["board_refreshes"] or not line["board_has_fleet"]:
+        raise SmokeFailure(f"obs_path: final board: refresh "
+                           f"{line['board_refreshes']}, fleet grid "
+                           f"{line['board_has_fleet']}")
+    if not line["losses_finite"]:
+        raise SmokeFailure("obs_path: non-finite loss")
+    if not line["launches"]["gmm_update"] or any(
+            line["plain_calls"].values()) or any(
+            v["general"] for v in line["variants"].values()):
+        raise SmokeFailure(f"obs_path: launches {line['launches']}, plain "
+                           f"calls {line['plain_calls']}, variants "
+                           f"{line['variants']}")
+
+
+# what ``chip_smoke.py FLAG OUT [ARG]`` runs in a process of its own
+# (`isolated`; ``--ckpt-run`` is started by ``ckpt_path``'s own process)
 CHILDREN = {"--eval-pass-a": eval_pass_a, "--eval-pass-b": eval_pass_b,
-            "--serve-path": serve_phase}
+            "--serve-path": serve_phase, "--ckpt-path": ckpt_phase,
+            "--ckpt-run": ckpt_run, "--obs-path": obs_phase}
 
 
 def build_phase(build, kmod, card):
@@ -2344,8 +2802,11 @@ def main() -> int:
     # the train step's CUDA graph against the eager step
     t_phase = time.perf_counter()
     rel_loss, rel_grad = check_graphed_step()
+    rel_step_loss, rel_step_params = check_graphed_train_step()
     emit({"phase": "graph_check", "max_rel_loss_err": rel_loss,
           "max_rel_grad_err": rel_grad,
+          "train_step_max_rel_loss_err": rel_step_loss,
+          "train_step_rel_params_err": rel_step_params,
           "seconds": time.perf_counter() - t_phase})
 
     reset_counts, read_counts, read_all_variants = counters()
@@ -2428,10 +2889,26 @@ def main() -> int:
     # 8. the scenario-matrix evaluation harness: the CI gate, then full width
     ev = eval_phase()
 
-    # 9. the serve plane: the graphed slot step, the launcher, the gates
+    # 9. checkpointing: a run, a run stopped by SIGINT, its resume
+    ck = isolated("--ckpt-path", "ckpt_path")
+    ck_line = ckpt_line(ck)
+    try:
+        ck_line["unmet"] = check_ckpt(ck_line, ck["runs"])
+    finally:
+        emit(ck_line)
+
+    # 10. the operator surface: the endpoint scraped, the board written
+    ob = isolated("--obs-path", "obs_path")
+    ob_line = {"phase": "obs_path", **ob,
+               "session_path_stream_steady_steps_per_s":
+                   session["modes"]["stream"]["steady_steps_per_s"]}
+    emit(ob_line)
+    check_obs(ob_line)
+
+    # 11. the serve plane: the graphed slot step, the launcher, the gates
     sv = isolated("--serve-path", "serve_path")
 
-    # 10. times at each path's largest shape and at scale
+    # 12. times at each path's largest shape and at scale
     t_phase = time.perf_counter()
     N, D, K = shape
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
@@ -2476,6 +2953,8 @@ def main() -> int:
                               "stream_path": s_launches[name],
                               "fleet_path": fleet["launches"][name],
                               "eval_path": ev["launches"][name],
+                              "ckpt_path": ck["launches"].get(name, 0),
+                              "obs_path": ob["launches"][name],
                               "serve_path": sv["launches"][name]},
          "kernels_per_call": at_path[name]["nodes"]["kernels"],
          "memsets_per_call": at_path[name]["nodes"]["memsets"],
@@ -2483,6 +2962,8 @@ def main() -> int:
                               "stream_path": s_variants[name],
                               "fleet_path": fleet["variants"][name],
                               "eval_path": ev["variants"][name],
+                              "ckpt_path": ck["variants"].get(name),
+                              "obs_path": ob["variants"][name],
                               "serve_path": sv["variants"][name]}}
         for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")],
         "smoke_seconds": time.perf_counter() - t_smoke})
@@ -2496,7 +2977,7 @@ def main() -> int:
 if __name__ == "__main__":
     try:
         if sys.argv[1:2] and sys.argv[1] in CHILDREN:
-            sys.exit(child_main(sys.argv[1], sys.argv[2]))
+            sys.exit(child_main(*sys.argv[1:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)

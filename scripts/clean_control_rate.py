@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 scripts/clean_control_rate.py --mode stream \
         [--pass a|b] [--after-session] [--cells 20] [--label NAME] \
-        [--condition base|switch|gate|noproc|spin|nohooks|xla_exec] \
+        [--condition base|switch|gate|noproc|spin|nohooks|xla_exec|...] \
         [--scenario NAME] [--fixture PATH] [--out DIR] [--stacks]
     PYTHONPATH=src python3 scripts/clean_control_rate.py --runs 12 \
         [--condition ...]
@@ -30,13 +30,20 @@ slower than the cell's median by over 0.5 ms (which, and by how much), the
 CPU time the hypervisor took meanwhile (/proc/stat's steal), the
 garbage collections (those over 1 ms, and how many fell inside a
 monitored step), the monitored step's ms
-(p50, p90), the steps each layer flagged, and, for every diagnosed
-incident, its steps, its flags per layer, ``layer_deficit``, the mean
-deficit per flag against the diagnoser's floor (``min_mean_deficit``) and
-the blamed kind's share. A summary line last. With ``--fixture``, the
-first diagnosed incident's flag rows (ts, layer, node, step, deficit) and
-the device and collective evidence the diagnoser read are written there as
-JSON, for ``tests/test_torch_diagnosis_parity.py``.
+(p50, p90), the steps each layer flagged, the XLA layer's rows a step and
+spread per name in the window its model was fitted on (``xla_prefix``:
+the MAD of log(1 + dur_us)), and, for every diagnosed incident, its
+steps, its flags per layer, ``layer_deficit``, the mean deficit per flag
+against the diagnoser's floor (``min_mean_deficit``), the blamed kind's
+share, and every flag with its row's name, its deficit and the monitored
+step its timestamp lies in (that step's excess over the cell's median, and
+whether it is a stall), summed by name (``flags_by_name``); an incident
+none of whose flags lies in a stall is ``stall_free``. A summary line
+last, with each name's share of the stall-free incidents' flags and
+deficit (``stall_free``). With ``--fixture``, the first stall-free
+diagnosed incident's flag rows (else the first's: ts, layer, node, step,
+deficit, name) and the device and collective evidence the diagnoser read
+are written there as JSON, for ``tests/test_torch_diagnosis_parity.py``.
 
 ``--runs N`` measures pass A as `chip_smoke.py` runs it instead: the
 evaluator (`repro_torch.launch.evaluate --scenarios smoke --modes
@@ -54,14 +61,19 @@ second process that only reads the clock (`spin`: the machine pausing
 every process), the main thread's and the process's CPU clocks and
 `resource.getrusage` deltas (switches, faults). Per cell: the live threads
 at its first step (Python's names and the OS threads of /proc/self/task)
-and each OS thread's CPU ms over the cell. A cell's line sums these up (the
-stalls beside the typical step); each step's record goes under ``--out``.
+and each OS thread's CPU ms over the cell; beside the process,
+``nvidia-smi`` every 100 ms (the card's SM and memory clocks, power draw,
+temperature and clock-event reasons, over the cell and over its stalls:
+``host.card``). A cell's line sums these up (the stalls beside the typical
+step); each step's record goes under ``--out``. The graph's device time
+is read from CUDA events this script records around each graph replay.
 ``--stacks`` also arms a `faulthandler.dump_traceback_later` watchdog
 before each step, which writes every thread's Python stack when the step
 runs 3 ms past the running median; on the card's Python 3.12.3 it
 segfaulted the process within a few cells, so it is off by default.
 
-``--condition`` runs the cell under a diagnostic: ``switch`` sets
+``--condition`` runs the cell under diagnostics (comma-separated to
+combine): ``switch`` sets
 `sys.setswitchinterval` to 0.5 ms (the GIL's hand-off interval, 5 ms by
 default), ``gate`` holds the device probe's sampler while a monitored step
 is in flight, ``xla_exec`` drops the runtime probe's rows so the XLA layer
@@ -109,6 +121,12 @@ SHORT = {"ru_utime": "user_ms", "ru_stime": "sys_ms", "ru_nvcsw": "vcs",
 # the sampler may sample (``gate``): cleared while a monitored step runs
 IDLE = threading.Event()
 IDLE.set()
+
+
+def apply_conditions(names: str) -> None:
+    """Put this process under each of the comma-separated ``names``."""
+    for name in names.split(","):
+        apply_condition(name)
 
 
 def apply_condition(name: str) -> None:
@@ -205,7 +223,7 @@ def clock_sampler() -> None:
 
 # the step in flight as the step probe saw it: its STEP row's duration, and
 # the seconds spent in the user's step and in waits on CUDA events
-PHASE = {"step": None, "fn": 0.0, "sync": 0.0, "graph": 0.0}
+PHASE = {"step": None, "ts": None, "fn": 0.0, "sync": 0.0, "graph": 0.0}
 
 
 def clock_step_phases() -> None:
@@ -222,6 +240,7 @@ def clock_step_phases() -> None:
     def emit_rows(self, layer, name, ts, dur=0.0, *a, **k):
         if layer == Layer.STEP:
             PHASE["step"] = float(dur)
+            PHASE["ts"] = float(ts)
         return emit(self, layer, name, ts, dur, *a, **k)
 
     StepProbe.emit_rows = emit_rows
@@ -235,14 +254,147 @@ def clock_step_phases() -> None:
             PHASE["sync"] += time.perf_counter() - t0
 
     torch.cuda.Event.synchronize = timed_sync
-    elapsed = torch.cuda.Event.elapsed_time
+    replay = torch.cuda.CUDAGraph.replay
 
-    def graph_ms(self, end):  # the runtime probe's graph device times
-        ms = elapsed(self, end)
-        PHASE["graph"] += ms
-        return ms
+    def timed_replay(self, *a, **k):  # the graph's device time, by events
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            return replay(self, *a, **k)
+        finally:
+            end.record()
+            GRAPHS.append((start, end))
 
-    torch.cuda.Event.elapsed_time = graph_ms
+    torch.cuda.CUDAGraph.replay = timed_replay
+
+
+# graph replays of the step in flight whose device time is not read yet
+GRAPHS: list = []
+
+
+def graph_ms() -> float:
+    """The device ms of the graphs launched since the last call (each has
+    finished: the step probe waited for the step)."""
+    ms = sum(a.elapsed_time(b) for a, b in GRAPHS)
+    GRAPHS.clear()
+    return ms
+
+
+# flag rows the incident engines admitted, by (ts, layer index, node,
+# deficit) -> the row's name (`clock_flag_names`); the last cold fit's
+# per-name rows of each layer (name -> (count, median log_dur, MAD))
+FLAG_NAMES: dict = {}
+PREFIX: dict = {}
+_LAST_FS = {"ts": None, "names": None}
+
+
+def _per_name(names, log_dur) -> dict:
+    import numpy as np
+
+    out = {}
+    names = np.asarray(names).astype(str)
+    for n in np.unique(names):
+        v = log_dur[names == n]
+        med = float(np.median(v))
+        out[str(n)] = (int(v.shape[0]), med,
+                       float(np.median(np.abs(v - med))))
+    return out
+
+
+def clock_flag_names() -> None:
+    """From here on, remember the name of every flag row an incident
+    engine admits (`FLAG_NAMES`) and each layer's per-name rows in the
+    window its model was fitted on (`PREFIX`). The detections carry no
+    names: a detection built from the feature rows just made takes theirs
+    (same ``ts`` array), and the engine's admitted rows are keyed by the
+    values it stores (ts, layer, node, deficit)."""
+    import numpy as np
+
+    from repro_torch.core import detector as dmod, features
+    from repro_torch.core.events import Layer
+    from repro_torch.stream import incidents as imod, online
+
+    featurize = online.OnlineGMMDetector._featurize
+
+    def featurize_kept(self, window, state):
+        fs = featurize(self, window, state)
+        if fs is not None:
+            _LAST_FS.update(ts=fs.ts, names=fs.names)
+        return fs
+
+    online.OnlineGMMDetector._featurize = featurize_kept
+    transform = features.LayerFeaturizer.transform
+
+    def transform_kept(self, data):
+        fs = transform(self, data)
+        if fs is not None:
+            _LAST_FS.update(ts=fs.ts, names=fs.event_names)
+        return fs
+
+    features.LayerFeaturizer.transform = transform_kept
+    for cls in (online.WindowDetection, dmod.DetectionResult):
+        init = cls.__init__
+
+        def init_named(self, *a, _init=init, **k):
+            _init(self, *a, **k)
+            if _LAST_FS["ts"] is not None and self.ts is _LAST_FS["ts"]:
+                self._names = _LAST_FS["names"]
+
+        cls.__init__ = init_named
+    cold_fit = online.OnlineGMMDetector._cold_fit
+
+    def cold_fit_kept(self, layer, fs):
+        if layer != Layer.DEVICE:  # before the baseline: X[:, 0] = log_dur
+            PREFIX[layer.value] = _per_name(fs.names, fs.X[:, 0].copy())
+        return cold_fit(self, layer, fs)
+
+    online.OnlineGMMDetector._cold_fit = cold_fit_kept
+    fit = features.LayerFeaturizer.fit
+
+    def fit_kept(self, data):
+        out = fit(self, data)
+        if out is not None and self.layer != Layer.DEVICE:
+            fs = features.build_features(data, self.layer)
+            PREFIX[self.layer.value] = _per_name(fs.event_names, fs.X[:, 0])
+        return out
+
+    features.LayerFeaturizer.fit = fit_kept
+    ingest = imod.IncidentEngine.ingest
+
+    def ingest_named(self, detections, now=None):
+        for layer, det in detections.items():
+            names = getattr(det, "_names", None)
+            if names is None or getattr(det, "ts", None) is None:
+                continue
+            f = np.asarray(det.flags)
+            if not f.any():
+                continue
+            nodes = (det.nodes if det.nodes is not None
+                     else np.zeros(len(det.ts), dtype=np.int32))
+            deficit = np.clip(det.log_delta - det.scores[f], 0.0,
+                              self.deficit_cap)
+            li = float(self._layer_idx[layer])
+            for t, n, d, name in zip(det.ts[f], nodes[f], deficit,
+                                     np.asarray(names)[f]):
+                FLAG_NAMES[(float(t), li, float(n), float(d))] = str(name)
+        return ingest(self, detections, now)
+
+    imod.IncidentEngine.ingest = ingest_named
+
+
+def prefix_spread(layer: str = "xla") -> dict:
+    """``layer``'s rows a step per name in its model's fitted window (one
+    ``executable_run`` a monitored step) and each name's spread there (the
+    MAD of log(1 + dur_us)) and median duration."""
+    import math
+
+    rows = PREFIX.get(layer, {})
+    steps = rows.get("executable_run", (0,))[0] or 1
+    return {n: {"rows_per_step": round(c / steps, 3),
+                "mad_log_dur": round(mad, 5),
+                "median_us": round(math.expm1(med), 2)}
+            for n, (c, med, mad) in sorted(rows.items())}
 
 
 def spin(seconds: float) -> int:
@@ -284,6 +436,111 @@ class Spinner:
 
 SPINNER: list = []  # the live `Spinner`, if any
 
+SMI_FIELDS = ("clocks.sm", "clocks.mem", "power.draw", "temperature.gpu",
+              "clocks_event_reasons.active")
+
+
+class SmiSampler:
+    """``nvidia-smi`` beside the process under test, every 100 ms for as
+    long as this object lives: the card's SM and memory clocks, power
+    draw, temperature and active clock-event (throttle) reasons; ``in_span``
+    reads the samples between two perf_counter times. Without nvidia-smi
+    (or a field it lacks) it samples what it can, or nothing."""
+
+    def __init__(self, out_dir: str, tag: str):
+        import datetime
+
+        self._dt = datetime.datetime
+        os.makedirs(out_dir, exist_ok=True)
+        self.path = os.path.join(out_dir, f"{tag}.smi.csv")
+        self.fields, self.proc = (), None
+        for fields in (SMI_FIELDS, SMI_FIELDS[:4]):
+            try:
+                ok = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=" + ",".join(fields),
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    timeout=30).returncode == 0
+            except (OSError, subprocess.SubprocessError):
+                return
+            if ok:
+                self.fields = fields
+                break
+        if not self.fields:
+            return
+        # wall clock -> perf_counter (nvidia-smi stamps local wall time)
+        self.offset = time.time() - time.perf_counter()
+        self._f = open(self.path, "w")
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=timestamp," + ",".join(self.fields),
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=self._f, stderr=subprocess.DEVNULL)
+
+    def samples(self) -> list:
+        """(perf_counter time, {field: value}) of every sample so far."""
+        if self.proc is None:
+            return []
+        out = []
+        with open(self.path) as f:
+            for line in f:
+                parts = [p.strip() for p in line.split(",")]
+                if len(parts) != len(self.fields) + 1:
+                    continue
+                try:
+                    t = self._dt.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f")
+                except ValueError:
+                    continue
+                vals = {}
+                for k, v in zip(self.fields, parts[1:]):
+                    try:
+                        vals[k] = (int(v, 16) if k.endswith("active")
+                                   else float(v))
+                    except ValueError:
+                        vals[k] = None
+                out.append((t.timestamp() - self.offset, vals))
+        return out
+
+    def close(self) -> None:
+        if self.proc is not None:
+            self.proc.terminate()
+            self.proc.wait()
+            self._f.close()
+
+
+SMI: list = []  # the live `SmiSampler`, if any
+
+
+def smi_summary(spans, stalls) -> dict:
+    """The card's clocks, power, temperature and clock-event reasons over
+    a cell (``spans``: each step's perf_counter (start, end)) and over its
+    stalls (indices into ``spans``; each widened by the 100 ms period)."""
+    import numpy as np
+
+    if not SMI or not spans:
+        return {}
+    got = SMI[0].samples()
+    t0, t1 = spans[0][0], spans[-1][1]
+    cell = [v for t, v in got if t0 <= t <= t1]
+
+    def stats(rows):
+        if not rows:
+            return {}
+        out = {}
+        for k in ("clocks.sm", "clocks.mem", "power.draw",
+                  "temperature.gpu"):
+            xs = [r[k] for r in rows if r.get(k) is not None]
+            if xs:
+                out[k] = [min(xs), float(np.median(xs)), max(xs)]
+        reasons = sorted({r["clocks_event_reasons.active"] for r in rows
+                          if r.get("clocks_event_reasons.active")
+                          is not None})
+        out["reasons"] = [hex(x) for x in reasons]
+        out["samples"] = len(rows)
+        return out
+
+    near = [v for t, v in got for i in stalls
+            if spans[i][0] - 0.1 <= t <= spans[i][1] + 0.1]
+    return {"cell": stats(cell), "stalls": stats(near)}
+
 
 def overlap_ms(spans, a: float, b: float) -> float:
     return 1e3 * sum(max(0.0, min(b, t1) - max(a, t0)) for t0, t1 in spans
@@ -305,6 +562,7 @@ class StepWatch:
         self.spans, self.thread, self.proc, self.cpu = [], [], [], []
         # (STEP row ms, user step ms, event-wait ms, graph device ms)
         self.phases = []
+        self.step_ts = []  # each STEP row's ts (the collector's clock)
         self.names, self.idents, self.py_threads = {}, {}, []
         self.tasks0 = {}
         self.n_sweeps, self.n_reads = len(SWEEPS), len(PROC_READS)
@@ -331,7 +589,8 @@ class StepWatch:
                 faulthandler.dump_traceback_later(med + WATCH_SLACK_S,
                                                   file=self.dump)
             IDLE.clear()
-            PHASE.update(step=None, fn=0.0, sync=0.0, graph=0.0)
+            GRAPHS.clear()
+            PHASE.update(step=None, ts=None, fn=0.0, sync=0.0, graph=0.0)
             rt0 = resource.getrusage(resource.RUSAGE_THREAD)
             rp0 = resource.getrusage(resource.RUSAGE_SELF)
             c0, p0 = time.thread_time(), time.process_time()
@@ -346,7 +605,9 @@ class StepWatch:
                 IDLE.set()
                 if self.stacks_on:
                     faulthandler.cancel_dump_traceback_later()
+                PHASE["graph"] = graph_ms()
                 self.spans.append((t0, t1))
+                self.step_ts.append(PHASE["ts"])
                 self.phases.append(
                     (1e3 * (PHASE["step"] if PHASE["step"] is not None
                             else t1 - t0), 1e3 * PHASE["fn"],
@@ -459,6 +720,7 @@ class StepWatch:
             "slow_mean": mean(slow), "typical_mean": mean(typical),
             "steps_in_a_proc_read": sum(r["proc_read_ms"] > 0 for r in rows),
             "watchdog_dumps": len(dumps),
+            "card": smi_summary(self.spans, stalls),
             "stall_stacks": {str(i): dumps[i] for i in stalls[:4]
                              if i in dumps},
         }
@@ -570,8 +832,53 @@ def recorded():
         dmod.Diagnoser.diagnose = diagnose
 
 
-def incident_line(inc, diag, g, floor):
-    """One diagnosed incident as printed."""
+def flag_rows(g, watch) -> list:
+    """Each flag row of an incident (``g``: ts, layer, node, step, deficit)
+    with its row's name (`FLAG_NAMES`), the monitored step its ts lies in
+    (the STEP rows' windows; a row between steps takes the step before) and
+    that step's excess over the cell's median STEP row in ms, and whether
+    that step is a stall (over the median by `STALL_MS`)."""
+    import numpy as np
+
+    from repro_torch.core.events import Layer
+
+    layers = tuple(Layer)
+    ms = np.asarray([p[0] for p in watch.phases])
+    t0 = np.asarray([t if t is not None else np.nan for t in watch.step_ts])
+    med = float(np.median(ms)) if len(ms) else 0.0
+    out = []
+    for ts, li, node, step, d in g:
+        # 1 us of slack: the wire carries ts in whole nanoseconds
+        i = (int(np.searchsorted(t0, ts + 1e-6, side="right")) - 1
+             if len(t0) else -1)
+        excess = float(ms[i] - med) if i >= 0 else None
+        out.append({"ts": float(ts), "layer": layers[int(li)].value,
+                    "name": FLAG_NAMES.get((float(ts), float(li),
+                                            float(node), float(d)), "?"),
+                    "node": int(node), "step": int(step),
+                    "deficit": round(float(d), 4), "in_step": i,
+                    "step_excess_ms": (round(excess, 3)
+                                       if excess is not None else None),
+                    "stall": bool(excess is not None
+                                  and excess > STALL_MS)})
+    return out
+
+
+def by_name(flags) -> dict:
+    """layer/name -> flags, deficit, and the largest deficit."""
+    out = {}
+    for f in flags:
+        key = f"{f['layer']}/{f['name']}"
+        e = out.setdefault(key, {"flags": 0, "deficit": 0.0, "max": 0.0})
+        e["flags"] += 1
+        e["deficit"] = round(e["deficit"] + f["deficit"], 4)
+        e["max"] = max(e["max"], f["deficit"])
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["deficit"]))
+
+
+def incident_line(inc, diag, g, floor, watch):
+    """One diagnosed incident as printed: its flags by layer and by row
+    name, each flag with its deficit and whether it lies in a stall."""
     import numpy as np
 
     from repro_torch.core.events import Layer
@@ -579,6 +886,7 @@ def incident_line(inc, diag, g, floor):
     layers = tuple(Layer)
     ids, counts = np.unique(g[:, 1].astype(int), return_counts=True)
     steps = sorted(inc.steps)
+    flags = flag_rows(g, watch)
     return {"kind": diag.fault_kind, "share": diag.candidates[diag.fault_kind],
             "confidence": diag.confidence,
             "steps": {"first": steps[0] if steps else None,
@@ -590,11 +898,32 @@ def incident_line(inc, diag, g, floor):
             "layer_deficit": {k: round(v, 3)
                               for k, v in inc.layer_deficit.items()},
             "mean_deficit": inc.severity / max(inc.n_flags, 1),
-            "min_mean_deficit": floor}
+            "min_mean_deficit": floor,
+            "stall_free": not any(f["stall"] for f in flags),
+            "flags_by_name": by_name(flags), "flags": flags}
 
 
-def fixture(mode, inc, diag, g, evidence, label):
-    """The incident's flag rows and the evidence the diagnoser read, as
+def stall_free_shares(cells) -> dict:
+    """Over every diagnosed incident holding no stall: each layer/name's
+    share of their flags and of their deficit."""
+    flags = [f for c in cells for inc in c["diagnosed"] if inc["stall_free"]
+             for f in inc["flags"]]
+    n = len(flags)
+    total = sum(f["deficit"] for f in flags) or 1.0
+    return {"incidents": sum(inc["stall_free"] for c in cells
+                             for inc in c["diagnosed"]),
+            "of_diagnosed": sum(len(c["diagnosed"]) for c in cells),
+            "flags": n,
+            "by_name": {k: {"flags": v["flags"],
+                            "flag_share": round(v["flags"] / max(n, 1), 4),
+                            "deficit_share": round(v["deficit"] / total, 4),
+                            "max_deficit": v["max"]}
+                        for k, v in by_name(flags).items()}}
+
+
+def fixture(mode, inc, diag, g, evidence, label, line):
+    """The incident's flag rows (with each row's name and the step it lies
+    in, ``line``'s `flag_rows`) and the evidence the diagnoser read, as
     JSON (numbers rounded to what the float64 rows carry)."""
     import numpy as np
 
@@ -618,7 +947,12 @@ def fixture(mode, inc, diag, g, evidence, label):
                      "layer": [layers[int(i)].value for i in g[:, 1]],
                      "node": g[:, 2].astype(int).tolist(),
                      "step": g[:, 3].astype(int).tolist(),
-                     "deficit": g[:, 4].tolist()},
+                     "deficit": g[:, 4].tolist(),
+                     "name": [f["name"] for f in line["flags"]],
+                     "step_excess_ms": [f["step_excess_ms"]
+                                        for f in line["flags"]]},
+            "stall_free": line["stall_free"],
+            "xla_prefix": prefix_spread("xla"),
             "evidence": ev,
             "incident": {"n_flags": inc.n_flags, "severity": inc.severity,
                          "suspect_layer": inc.suspect_layer.value,
@@ -865,8 +1199,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fixture", default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cpu: the reduced model, a dry run of the script")
-    ap.add_argument("--condition", choices=CONDITIONS, default="base",
-                    help="a diagnostic the cells run under (docstring)")
+    ap.add_argument("--condition", default="base",
+                    help="diagnostics the cells run under, comma-separated "
+                         f"(docstring): {', '.join(CONDITIONS)}")
     ap.add_argument("--scenario", default="clean_control",
                     help="the cell's scenario (pass B: runtime_stall)")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
@@ -878,6 +1213,9 @@ def main(argv=None) -> int:
                     help="arm the faulthandler watchdog (docstring: it "
                          "crashed processes on the card's Python 3.12.3)")
     args = ap.parse_args(argv)
+    bad = set(args.condition.split(",")) - set(CONDITIONS)
+    if bad:
+        ap.error(f"unknown --condition {sorted(bad)}")
     if args.spin is not None:
         return spin(args.spin)
 
@@ -892,10 +1230,13 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     clock_sampler()
     clock_step_phases()
-    apply_condition(args.condition)
+    clock_flag_names()
+    apply_conditions(args.condition)
     if args.runs:
         return evaluator_runs(args.runs, dev, args)
     SPINNER.append(Spinner(args.out, f"{args.label}_{os.getpid()}"))
+    if dev.type == "cuda":
+        SMI.append(SmiSampler(args.out, f"{args.label}_{os.getpid()}"))
     try:
         if args.one_run:
             return one_run(args.one_run, dev, args.out, args.stacks)
@@ -903,6 +1244,8 @@ def main(argv=None) -> int:
     finally:
         if SPINNER:
             SPINNER.pop().close()
+        if SMI:
+            SMI.pop().close()
 
 
 def cells_main(args, dev, ap) -> int:
@@ -944,11 +1287,14 @@ def cells_main(args, dev, ap) -> int:
         for d in report.diagnoses:
             inc = incs[d.incident_id]
             g = got["groups"][d.incident_id]
-            diagnosed.append(incident_line(inc, d, g, floor))
-            if args.fixture and fixture_out is None:
+            diagnosed.append(incident_line(inc, d, g, floor, watch))
+            # the fixture: the first stall-free incident, else the first
+            if args.fixture and (fixture_out is None or (
+                    not fixture_out["stall_free"]
+                    and diagnosed[-1]["stall_free"])):
                 fixture_out = fixture(args.mode, inc, d, g,
                                       got["evidence"].get(d.incident_id, {}),
-                                      args.label)
+                                      args.label, diagnosed[-1])
         line = {"cell": cell, "label": args.label, "pass": args.pass_,
                 "after_session": args.after_session, "mode": args.mode,
                 "scenario": args.scenario, "condition": args.condition,
@@ -972,6 +1318,7 @@ def cells_main(args, dev, ap) -> int:
                                   if len(v.anomalous_steps)},
                 "lasting_shift": lasting_shift(report, run.eval_start, n),
                 "diagnosed": diagnosed, "wall_s": row["wall_s"],
+                "xla_prefix": prefix_spread("xla"),
                 "host": watch.summary()}
         print(json.dumps(line), flush=True)
         cells.append(line)
@@ -995,6 +1342,7 @@ def cells_main(args, dev, ap) -> int:
                                               for c in cells])),
         "gc_over_1ms_in_step_per_cell": float(np.mean(
             [c["gc"]["over_1ms_in_step"] for c in cells])),
+        "stall_free": stall_free_shares(cells),
         **host_totals([c["host"] for c in cells]),
         "card": card()}}), flush=True)
     return 0

@@ -14,8 +14,8 @@ Consumers:
 * `repro_torch.session.Session.on_step` runs `Governor.decide` on each
   detection sweep and `Governor.act` on each finalised diagnosis; the
   launcher (`repro_torch.launch.train --monitor-spec ...`) prints the
-  actions. It does not yet honour ``checkpoint_now``: the checkpoint module
-  (the JAX package's `repro/train/checkpoint.py`) is not ported.
+  actions and honours ``checkpoint_now`` with an immediate snapshot when
+  given ``--checkpoint-dir`` (`repro_torch.train.checkpoint`).
 * `repro_torch.quickstart` runs `Governor.decide` on the detection results
   of a monitored training run and prints the actions.
 * `docs/runbook.md` documents one operator playbook per fault kind; each

@@ -16,12 +16,19 @@ uprobes on libcudart leave the application alone:
     torch.cuda.Event.synchronize   -> cudaEventSynchronize
 
 Each call made outside a detection zone emits one row named after the
-runtime call, with the host time the call took. A graph launch is also
-timed on the device: CUDA events are recorded around it on the caller's
-stream, and once a later hooked synchronisation has returned and the end
-event is complete, a ``graph_exec`` row carries the graph's device time.
-Calls made inside ``detect.guard.detection_zone()`` (the async detection
-plane's worker) are counted in ``dropped_in_zone`` and emit nothing.
+runtime call, with the host time the call took — what a row of the
+reference's layer measures (``jax.monitoring`` reports the host time of
+the runtime's work). Calls made inside ``detect.guard.detection_zone()``
+(the async detection plane's worker) are counted in ``dropped_in_zone``
+and emit nothing, and the monitor's own calls (the step probe's wait for
+the step, inside `unobserved`) are passed through unrecorded: the
+reference's step probe waits with ``jax.block_until_ready``, which raises
+no ``jax.monitoring`` event. So a graphed training step leaves the
+reference's ``executable_run`` (the step probe's) and one
+``cudaGraphLaunch`` row a step, and no device time: the graph's device
+time is the card's, not a runtime call's (on the H100 its spread in a
+fitted window, a MAD of 0.0009 in log duration, was a fifteenth of
+``executable_run``'s).
 
 While a monitored step is in flight (`hold` ... `release`, which the step
 probe calls around the part of the step it times), the rows are queued and
@@ -48,6 +55,7 @@ C++ (kernel launches of eager ops, the copies of ``.item()``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import threading
@@ -61,7 +69,6 @@ from repro_torch.core.probes.base import Probe
 from repro_torch.detect.guard import in_detection_zone
 
 GRAPH_LAUNCH = "cudaGraphLaunch"
-GRAPH_EXEC = "graph_exec"
 
 
 def hook_targets() -> List[Tuple[object, str, str]]:
@@ -75,6 +82,7 @@ def hook_targets() -> List[Tuple[object, str, str]]:
 _LOCK = threading.Lock()
 _ACTIVE: List["CudaRuntimeProbe"] = []  # attached probes, in attach order
 _HELD = [0]  # monitored steps in flight (`hold` / `release`)
+_OWN = threading.local()  # .depth: the thread is inside `unobserved`
 # (owner, attribute, whether the owner defined it itself, its own value)
 _SAVED: List[Tuple[object, str, bool, object]] = []
 
@@ -92,17 +100,31 @@ def release() -> None:
             p._flush()
 
 
+@contextlib.contextmanager
+def unobserved():
+    """The block's runtime calls are the monitor's own, not the job's: the
+    hooks pass them through and record nothing."""
+    _OWN.depth = getattr(_OWN, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _OWN.depth -= 1
+
+
 def _listeners() -> List["CudaRuntimeProbe"]:
-    """The attached probes, or none inside a detection zone (counted)."""
+    """The attached probes, or none inside a detection zone (counted) or
+    inside `unobserved`."""
     probes = list(_ACTIVE)
-    if probes and in_detection_zone():
+    if not probes or getattr(_OWN, "depth", 0):
+        return []
+    if in_detection_zone():
         for p in probes:
             p.dropped_in_zone += 1
         return []
     return probes
 
 
-def _sync_hook(orig: Callable, call: str) -> Callable:
+def _hook(orig: Callable, call: str) -> Callable:
     @functools.wraps(orig)
     def hook(*args, **kwargs):
         probes = _listeners()
@@ -113,28 +135,6 @@ def _sync_hook(orig: Callable, call: str) -> Callable:
         t1 = time.perf_counter()
         for p in probes:
             p._record(call, t0, t1)
-            p._resolve_graphs()
-        return out
-
-    return hook
-
-
-def _graph_hook(orig: Callable, call: str) -> Callable:
-    @functools.wraps(orig)
-    def hook(graph, *args, **kwargs):
-        probes = _listeners()
-        if not probes:
-            return orig(graph, *args, **kwargs)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        out = orig(graph, *args, **kwargs)
-        t1 = time.perf_counter()
-        end.record()
-        for p in probes:
-            p._record(call, t0, t1)
-            p._pending.append((t0, start, end))
         return out
 
     return hook
@@ -144,8 +144,7 @@ def _install() -> None:
     for owner, attr, call in hook_targets():
         own = attr in vars(owner)
         _SAVED.append((owner, attr, own, vars(owner).get(attr)))
-        make = _graph_hook if call == GRAPH_LAUNCH else _sync_hook
-        setattr(owner, attr, make(getattr(owner, attr), call))
+        setattr(owner, attr, _hook(getattr(owner, attr), call))
 
 
 def _uninstall() -> None:
@@ -163,9 +162,6 @@ class CudaRuntimeProbe(Probe):
     def __init__(self):
         super().__init__()
         self.dropped_in_zone = 0  # calls seen inside a detection zone
-        # graph launches whose device time is not read yet: (host ts of the
-        # launch, start event, end event)
-        self._pending: List[Tuple[float, object, object]] = []
         # calls recorded while a step is in flight: (call, t0, t1, thread)
         self._queued: List[Tuple[str, float, float, int]] = []
 
@@ -182,7 +178,6 @@ class CudaRuntimeProbe(Probe):
                 _ACTIVE.remove(self)
             if not _ACTIVE:
                 _uninstall()
-        self._pending = []
 
     def _record(self, call: str, t0: float, t1: float) -> None:
         if _HELD[0]:
@@ -195,19 +190,7 @@ class CudaRuntimeProbe(Probe):
                        pid=os.getpid(), tid=tid)
 
     def _flush(self) -> None:
-        """Write the queued rows, then the finished graphs' device times."""
+        """Write the queued rows."""
         queued, self._queued = self._queued, []
         for rec in queued:
             self._write(*rec)
-        self._resolve_graphs()
-
-    def _resolve_graphs(self) -> None:
-        """Emit the device time of every graph launch that has finished
-        (deferred while a step is in flight)."""
-        if _HELD[0]:
-            return
-        while self._pending and self._pending[0][2].query():
-            t0, start, end = self._pending.pop(0)
-            self.emit_rows(Layer.XLA, GRAPH_EXEC, t0 - self._t0,
-                           dur=start.elapsed_time(end) / 1e3,
-                           pid=os.getpid())

@@ -78,7 +78,10 @@ class StepProbe(Probe):
             # card signals, where a spinning thread is late whenever its
             # core is taken from it while the step ends. A shorter one
             # spins: waking a sleeping thread costs a short step a large
-            # share of its time, and the wake-up's spread with it
+            # share of its time, and the wake-up's spread with it. The wait
+            # is the monitor's, not the job's: the runtime probe does not
+            # record it (the reference's block_until_ready raises no
+            # runtime event either)
             if torch.cuda.is_initialized():
                 blocking = self._last_exec >= SPIN_BELOW_S
                 done = self._done.get(blocking)
@@ -86,7 +89,8 @@ class StepProbe(Probe):
                     done = self._done[blocking] = torch.cuda.Event(
                         blocking=blocking)
                 done.record()
-                done.synchronize()
+                with runtime_probe.unobserved():
+                    done.synchronize()
             exec_dur = self.now() - t0
             self._last_exec = exec_dur
             if self.extra_latency:  # python-layer fault: real host-side stall

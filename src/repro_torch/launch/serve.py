@@ -22,8 +22,9 @@ and TPOT (p50, p95), and the engine step's wall ms (p50, p90).
 
 ``--static-batch`` keeps the legacy fixed-batch `ServeEngine` path (one
 ``generate`` call, no request accounting) for A/B comparison.
-``--metrics-port`` and ``--board-out`` exit with an error naming the obs/
-slice they wait for.
+``--metrics-port`` serves the monitor's self-telemetry (a ``prometheus``
+sink; 0 binds a free port) and ``--board-out`` writes a live HTML status
+board (a ``board`` sink), as the training launcher does.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import Runtime, init_params
 from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
                                RequestQueue, ServeEngine)
-from repro_torch.session import MonitorSpec, Session
+from repro_torch.session import MonitorSpec, Session, SinkSpec
 
 # historical tuning of the serve launcher (legacy-flag path only)
 LEGACY_SPEC_DEFAULTS = {
@@ -102,9 +103,11 @@ def parser() -> argparse.ArgumentParser:
                     help="[deprecated] = --monitor-spec "
                          "'{\"mode\":\"stream\"}'")
     ap.add_argument("--metrics-port", type=int, default=-1,
-                    help="not ported yet (the obs/ slice)")
+                    help="serve monitor self-metrics on this port "
+                         "(= a \"prometheus\" sink; 0 = ephemeral)")
     ap.add_argument("--board-out", default="",
-                    help="not ported yet (the obs/ slice)")
+                    help="write a live HTML status board here "
+                         "(= a \"board\" sink)")
     return ap
 
 
@@ -121,10 +124,19 @@ def serve(args) -> Dict[str, Any]:
     params = init_params(cfg, seed=args.seed, device=dev)
 
     spec = MonitorSpec.from_args(args, legacy_defaults=LEGACY_SPEC_DEFAULTS)
-    if spec.mode != "off" and not args.static_batch \
-            and "request" not in spec.probes:
-        spec.probes = list(spec.probes) + ["request"]
+    if spec.mode != "off":
+        if not args.static_batch and "request" not in spec.probes:
+            spec.probes = list(spec.probes) + ["request"]
+        if args.metrics_port >= 0:
+            spec.sinks.append(SinkSpec(
+                kind="prometheus",
+                options={"serve": True, "port": args.metrics_port}))
+        if args.board_out:
+            spec.sinks.append(SinkSpec(kind="board", path=args.board_out))
     session = Session(spec, device=dev)
+    if not session.off and args.metrics_port >= 0:
+        print(f"[monitor] metrics endpoint: "
+              f"{session.sink('prometheus').url}/metrics", flush=True)
     run = _run_static if args.static_batch else _run_continuous
     out = run(args, cfg, rt, params, session)
     out.update(session=session, device=str(dev),
@@ -286,13 +298,7 @@ def _run_static(args, cfg, rt, params, session) -> Dict[str, Any]:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    ap = parser()
-    args = ap.parse_args(argv)
-    for given, flag in ((args.metrics_port >= 0, "--metrics-port"),
-                        (args.board_out, "--board-out")):
-        if given:
-            ap.error(f"{flag} is not ported yet: it comes with the obs/ "
-                     "slice of the port")
+    args = parser().parse_args(argv)
     out = serve(args)
     if out["report"] is not None:
         print(out["report"].render())

@@ -13,19 +13,36 @@ REPRO_MONITOR_SPEC env var); the `Session` facade attaches the probe suite at
 runtime, so the model/step code is IDENTICAL with and without monitoring
 (the paper's zero-instrumentation contract). The old ``--monitor`` /
 ``--stream-monitor`` / ``--stream-flush-every`` flags still work as
-deprecated shims onto the spec. The Governor turns detected anomalies into
-actions, and the launcher prints them.
+deprecated shims onto the spec. ``--metrics-port`` serves the monitor's
+self-telemetry (a ``prometheus`` sink; 0 binds a free port) and
+``--board-out`` writes a live HTML status board (a ``board`` sink).
+
+Fault tolerance: deterministic data pipeline + async checkpoints
+(``--checkpoint-dir``, every ``--checkpoint-every`` steps) + auto-resume
+from the latest one; the Governor turns detected anomalies into actions,
+and its checkpoint_now action triggers an immediate snapshot. Ctrl-C
+(SIGINT) stops the loop at the end of the step in flight, raises
+KeyboardInterrupt there, and the run saves a last checkpoint: the port
+updates the parameters and moments in place, so a step cut in the middle
+would leave a state that is neither the old one nor the new one (the
+reference's functional step leaves the old one). A second Ctrl-C
+interrupts at once and saves nothing: the last periodic checkpoint
+stands. ``step_N`` holds the
+state after N steps and a resumed loop starts at step N; the reference
+names the state after step s by s and runs step s again on resume, so a
+resumed run here equals the uninterrupted one.
 
 Flags whose modules are not ported yet exit with an error naming the slice
-they wait for: ``--data-mesh`` (launch/mesh.py), ``--checkpoint-dir``
-(train/checkpoint.py), ``--metrics-port`` and ``--board-out`` (obs/),
-``--microbatches`` > 1 and ``--optimizer adafactor`` (train/step.py and
-optim/).
+they wait for: ``--data-mesh`` (launch/mesh.py), ``--microbatches`` > 1
+and ``--optimizer adafactor`` (train/step.py and optim/).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import signal
 import sys
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -37,7 +54,8 @@ from repro_torch.data import SyntheticLMData
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Runtime, batch_to_device
 from repro_torch.roofline import model_flops
-from repro_torch.session import MonitorSpec, Session
+from repro_torch.session import MonitorSpec, Session, SinkSpec
+from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.step import (init_train_state, make_optimizer_for,
                                     make_train_step)
 
@@ -91,10 +109,6 @@ def parser() -> argparse.ArgumentParser:
 def _refuse_later_slices(ap: argparse.ArgumentParser, args) -> None:
     later = [
         (args.data_mesh, "--data-mesh", "launch/mesh.py"),
-        (args.checkpoint_dir, "--checkpoint-dir", "train/checkpoint.py"),
-        (args.metrics_port >= 0, "--metrics-port", "obs/ (the prometheus "
-         "sink)"),
-        (args.board_out, "--board-out", "obs/ (the board sink)"),
         (args.microbatches > 1, "--microbatches > 1", "train/step.py "
          "(gradient accumulation)"),
         (args.optimizer != "adamw", f"--optimizer {args.optimizer}",
@@ -106,6 +120,33 @@ def _refuse_later_slices(ap: argparse.ArgumentParser, args) -> None:
                      "slice of the port")
 
 
+@contextlib.contextmanager
+def interrupt_between_steps():
+    """While the block runs: a first SIGINT only sets the returned event
+    (the loop raises KeyboardInterrupt once its step is done), a second one
+    interrupts at once. Off the main thread, where no handler can be set,
+    SIGINT keeps its default."""
+    stop = threading.Event()
+    if threading.current_thread() is not threading.main_thread():
+        yield stop
+        return
+
+    def handler(signum, frame):
+        if stop.is_set():
+            raise KeyboardInterrupt
+        stop.set()
+
+    old = signal.signal(signal.SIGINT, handler)
+    try:
+        yield stop
+    finally:
+        signal.signal(signal.SIGINT, old)
+
+
+def _last_saved(ckpt: CheckpointManager) -> Optional[int]:
+    return ckpt.saves[-1]["step"] if ckpt.saves else None
+
+
 def train(args) -> Dict[str, Any]:
     """The monitored training run the CLI drives. Returns the losses, each
     step's end (seconds from the loop's start), the
@@ -113,7 +154,10 @@ def train(args) -> Dict[str, Any]:
     set-up before it — probes attached, the operator stream recorded — in
     ``setup_s``, the session's final sweep and sinks after it in
     ``finalize_s``), the session and its report (None when monitoring is
-    off), the fault injector, and the actions the governor printed."""
+    off), the fault injector, the actions the governor printed (each with
+    the step it followed, ``action_steps``), the step the loop started at
+    (``start_step``, > 0 after a resume) and the checkpoint manager's
+    ``saves`` (empty without ``--checkpoint-dir``)."""
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -130,6 +174,17 @@ def train(args) -> Dict[str, Any]:
     state = init_train_state(cfg, opt, seed=args.seed, device=dev)
     step_fn = make_train_step(cfg, rt, opt, microbatches=args.microbatches)
 
+    # ---- fault tolerance: auto-resume ----
+    ckpt = None
+    start_step = 0
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir)
+        restored, meta, rstep = ckpt.restore_latest(state)
+        if restored is not None:
+            state, start_step = restored, rstep
+            print(f"[resume] restored checkpoint at step {rstep}")
+        ckpt.reserve(state)  # the host buffers, before the loop
+
     # ---- monitoring session (runtime attachment; user code unchanged) ----
     # the batch sweep historically fitted with min_events=48; the stream
     # path always used the StreamMonitor default (64) — preserve both
@@ -137,7 +192,17 @@ def train(args) -> Dict[str, Any]:
     if not args.stream_monitor:
         legacy_defaults["detector"] = {"min_events": 48}
     spec = MonitorSpec.from_args(args, legacy_defaults=legacy_defaults)
+    if spec.mode != "off":
+        if args.metrics_port >= 0:
+            spec.sinks.append(SinkSpec(
+                kind="prometheus",
+                options={"serve": True, "port": args.metrics_port}))
+        if args.board_out:
+            spec.sinks.append(SinkSpec(kind="board", path=args.board_out))
     session = Session(spec, device=dev)
+    if not session.off and args.metrics_port >= 0:
+        print(f"[monitor] metrics endpoint: "
+              f"{session.sink('prometheus').url}/metrics", flush=True)
     injector = None
     if args.inject_faults and not session.off:
         injector = FaultInjector.random_schedule(args.steps, FAULT_KINDS,
@@ -145,10 +210,11 @@ def train(args) -> Dict[str, Any]:
 
     losses: List[float] = []
     step_end_s: List[float] = []  # each step's end, from the loop's start
-    actions = []
-    step = 0
+    actions, action_steps = [], []
+    step = start_step
+    stopped = False  # a SIGINT honoured at the end of its step
     t0 = time.perf_counter()
-    with session.monitoring():
+    with session.monitoring(), interrupt_between_steps() as stop:
         if not session.off:
             shp = ShapeConfig("run", args.seq, args.batch, "train")
             step_fn = session.observe_step_fn(
@@ -161,9 +227,9 @@ def train(args) -> Dict[str, Any]:
         # ---- training loop ----
         # KeyboardInterrupt is caught INSIDE the monitoring context: the
         # session still finalises and closes its sinks, so a Ctrl-C'd run
-        # leaves a valid report instead of nothing
+        # leaves a valid board/metrics/report instead of nothing
         try:
-            for step in range(args.steps):
+            for step in range(start_step, args.steps):
                 if injector is not None:
                     injector.apply(step, session.collector)
                 state, metrics = step_fn(
@@ -185,9 +251,21 @@ def train(args) -> Dict[str, Any]:
                           f"{[l.value for l in out.warmed]}")
                 for inc in out.incidents:
                     print("[monitor] " + inc.render())
+                # a checkpoint holds the steps done: step + 1
+                if ckpt is not None \
+                        and (step + 1) % args.checkpoint_every == 0:
+                    ckpt.save(step + 1, state, meta={"loss": loss})
                 for action in out.actions:
                     print(f"[governor] {action.kind}: {action.reason}")
+                    if action.kind == "checkpoint_now" and ckpt is not None \
+                            and _last_saved(ckpt) != step + 1:
+                        ckpt.save(step + 1, state, meta={"loss": loss,
+                                                         "reason": "governor"})
                 actions.extend(out.actions)
+                action_steps.extend([step] * len(out.actions))
+                if stop.is_set():  # SIGINT: the step is done, stop here
+                    stopped = True
+                    raise KeyboardInterrupt
         except KeyboardInterrupt:
             interrupted = True
             print(f"\n[monitor] interrupted at step {step}; "
@@ -197,14 +275,26 @@ def train(args) -> Dict[str, Any]:
         if injector is not None:
             injector.clear(session.collector)
         t_end = time.perf_counter()
+    t_final = time.perf_counter()  # the session's final sweep and sinks
+    if ckpt is not None:
+        # an interrupt that did not wait for its step's end (a second
+        # SIGINT) may have cut the in-place update short: the last
+        # checkpoint stands
+        if losses and (stopped or not interrupted) \
+                and _last_saved(ckpt) != start_step + len(losses):
+            ckpt.save(start_step + len(losses), state,
+                      meta={"loss": losses[-1]})
+        ckpt.close()
     train_s = t_end - t_loop
     return {"losses": losses, "step_end_s": step_end_s,
             "seconds": train_s, "setup_s": t_loop - t0,
-            "finalize_s": time.perf_counter() - t_end,  # final sweep, sinks
+            "finalize_s": t_final - t_end,
             "steps_per_s": len(losses) / train_s if train_s else 0.0,
             "session": session,
             "report": None if session.off else session.result(),
             "injector": injector, "actions": actions,
+            "action_steps": action_steps, "start_step": start_step,
+            "saves": ckpt.saves if ckpt is not None else [],
             "interrupted": interrupted, "device": str(dev)}
 
 

@@ -28,3 +28,6 @@ from repro_torch.session.sinks import (IncidentReportSink,  # noqa: F401
 from repro_torch.session.report import LayerSummary, MonitorReport  # noqa: F401
 from repro_torch.session.session import (NodeHandle, Session,  # noqa: F401
                                          StepOutcome)
+# registers the live `prometheus` and `board` sinks (imported last: they
+# subclass Sink and use the registry above)
+import repro_torch.obs.sinks  # noqa: F401,E402

@@ -26,8 +26,8 @@ step. With a ``topology`` the stream backend runs the hierarchical fleet
 plane (`repro_torch.fleet`), each group's detector on the session's device.
 With ``spec.slo`` and the ``request`` probe, the request plane's SLOs are
 judged every step (`repro_torch.serve.slo`), a plane apart from the GMM
-anomalies. Not ported yet, and raising until its slice: the self-telemetry
-layer (`obs_layer`, the obs slice).
+anomalies. The ``prometheus`` and ``board`` sinks read the session's
+self-telemetry (`obs_layer`, `repro_torch.obs.SessionObs`).
 """
 from __future__ import annotations
 
@@ -86,6 +86,9 @@ class Session:
                  device: DeviceLike = None):
         self.spec = spec or MonitorSpec()
         self.device = None
+        # self-telemetry layer (repro_torch.obs.SessionObs), created on
+        # demand by the first session sink that binds (prometheus/board)
+        self.obs = None
         self._nodes: Dict[int, NodeHandle] = {}
         self._active = False
         self._report: Optional[MonitorReport] = None
@@ -175,13 +178,17 @@ class Session:
         return None if self.off else self.node(0).collector
 
     def obs_layer(self, **kw):
-        """The session's self-telemetry layer (the reference's
-        `repro/obs/selfmetrics.py` SessionObs): not ported yet."""
+        """Get-or-create the session's self-telemetry layer
+        (`repro_torch.obs.SessionObs`); shared by every session sink, so the
+        exposition endpoint, the metrics file, and the status board all
+        read one registry."""
         if self.off:
             raise RuntimeError("mode 'off' sessions have no telemetry")
-        raise NotImplementedError(
-            "the session's self-telemetry layer is not ported yet: it comes "
-            "with the obs/ slice of the port (repro/obs/selfmetrics.py)")
+        if self.obs is None:
+            from repro_torch.obs.selfmetrics import SessionObs
+
+            self.obs = SessionObs(self, **kw)
+        return self.obs
 
     def sink(self, kind: str) -> sinks_mod.Sink:
         """The first configured sink of ``kind`` (e.g. to read the
@@ -192,7 +199,7 @@ class Session:
         raise KeyError(f"no sink of kind {kind!r} in this session; "
                        f"configured: {[s.kind for s in self._sinks]}")
 
-    # -- telemetry accessors (read by the reference's repro/obs) -------------
+    # -- telemetry accessors (read by repro_torch.obs) -----------------------
     def incidents_seen(self) -> List[Incident]:
         """Incidents finalised so far, severity-ranked (stream: live from
         the engine; batch: from the final report once built). SLO-breach
@@ -581,7 +588,7 @@ class Session:
         finally:
             # Flush-on-interrupt: even if the finalise sweep raised (or the
             # run was Ctrl-C'd), build a report from what we have and close
-            # every sink, so the report artifacts are valid.
+            # every sink, so the board/metrics/report artifacts are valid.
             if self.spec.mode == "stream" and not incidents \
                     and self._backend is not None:
                 incidents = self._backend.incidents  # whatever closed so far

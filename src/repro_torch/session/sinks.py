@@ -20,8 +20,7 @@ line), ``wire`` (length-prefixed wire batches, replayable through
 included), ``incident_report`` (the operator-facing markdown incident
 report with diagnoses + a JSON sibling). Third-party sinks register with
 ``@register_sink("kind")`` and become addressable from `SinkSpec.kind`. The
-reference's live ``prometheus`` and ``board`` sinks (`repro/obs/sinks.py`)
-come with the port's ``obs/`` slice; asking for one raises until then.
+live ``prometheus`` and ``board`` sinks live in `repro_torch.obs.sinks`.
 """
 from __future__ import annotations
 
@@ -65,16 +64,7 @@ class Sink:
         return None
 
 
-# sinks of the reference that wait for a later slice of the port
-LATER_SINKS = {"prometheus": "obs/ (repro/obs/sinks.py)",
-               "board": "obs/ (repro/obs/sinks.py)"}
-
-
 def build_sink(spec: SinkSpec) -> Sink:
-    if spec.kind in LATER_SINKS:
-        raise NotImplementedError(
-            f"sink {spec.kind!r} is not ported yet: it comes with the "
-            f"{LATER_SINKS[spec.kind]} slice of the port")
     return sink_class(spec.kind)(path=spec.path, **spec.options)
 
 

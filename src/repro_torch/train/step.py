@@ -5,10 +5,14 @@ mixed-precision masters come with a later slice).
 The reference jit-compiles the whole step into one executable. Run eagerly
 on the card, GPT-2's forward, backward and optimizer are nearly two
 thousand small launches, each paid for on the host, so the step time would
-be the host's and would wander with its load. On a CUDA device the forward and backward
-are therefore captured once in a CUDA graph (`CudaGraphed`) and replayed
-every step; the optimizer runs eagerly after the replay, so its host-side
-schedule (learning rate, bias corrections) needs no graph support.
+be the host's and would wander with its load. On a CUDA device the whole
+step — forward, backward and the optimizer's update — is therefore
+captured once in a CUDA graph (`CudaGraphed`) and replayed every step. The
+optimizer's host-side schedule (learning rate, bias corrections) reaches
+the graph through 0-dim device tensors filled before each replay, so the
+host's part of a step is those fills, the batch's copy and one graph
+launch, and a host stall while the card runs the step lengthens the step
+only if it lasts past the step's end.
 """
 from __future__ import annotations
 
@@ -64,7 +68,9 @@ def make_loss_and_grads(cfg: ModelConfig, rt: Runtime
 
 
 class CudaGraphed:
-    """``loss_and_grads`` captured in a CUDA graph and replayed.
+    """``fn(params, batch) -> (loss, metrics, grads)`` captured in a CUDA
+    graph and replayed: `make_loss_and_grads`'s function, or the whole train
+    step (`make_train_step`, which returns no grads).
 
     The first ``WARMUP`` calls run eagerly on the caller's stream (lazy
     library set-up must not happen during capture); the next call copies
@@ -125,15 +131,36 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
     """Returns step(state, batch) -> (state, metrics). ``batch`` holds numpy
     arrays or tensors; it is moved to the parameters' device.
 
-    On a CUDA device the forward and backward run as a CUDA graph unless
-    ``cuda_graph=False``. The parameters are updated in place (``p += u``
-    under ``no_grad``) to keep one copy of the weights; the returned state
-    holds the same tensors. Metrics stay on the device: reading one is the
-    caller's sync."""
+    On a CUDA device the forward, backward and update run as one CUDA graph
+    unless ``cuda_graph=False``. The parameters and the optimizer's moments
+    are updated in place (``p += u`` under ``no_grad``) to keep one copy of
+    them; the returned state holds the same tensors. Metrics stay on the
+    device: reading one is the caller's sync."""
     if microbatches != 1:
         raise NotImplementedError("gradient accumulation is not ported yet")
     loss_and_grads = make_loss_and_grads(cfg, rt)
-    graphed = CudaGraphed(loss_and_grads) if cuda_graph else None
+    # what the graphed step reads by address: the optimizer state's moments
+    # and the step's scalars (0-dim tensors, filled before each call)
+    live: Dict[str, Any] = {}
+
+    def update(params: Params, grads, opt_state, sc) -> torch.Tensor:
+        with torch.no_grad():
+            updates, gnorm = opt.apply(dict(zip(params, grads)), opt_state,
+                                       params, sc)
+            torch._foreach_add_(list(params.values()),
+                                [updates[k] for k in params])
+        return gnorm
+
+    def whole_step(params: Params, batch: Batch) -> LossAndGrads:
+        loss, metrics, grads = loss_and_grads(params, batch)
+        gnorm = update(params, grads, live["opt_state"], live["scalars"])
+        return loss, {**metrics, "grad_norm": gnorm}, ()
+
+    graphed = CudaGraphed(whole_step) if cuda_graph else None
+
+    def moments(opt_state) -> List[int]:
+        return [t.data_ptr() for k in ("mu", "nu")
+                for t in opt_state[k].values()]
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -141,14 +168,26 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
         device = next(iter(params.values())).device
         if isinstance(next(iter(batch.values())), np.ndarray):
             batch = batch_to_device(batch, device)
-        run = graphed if graphed is not None and device.type == "cuda" \
-            else loss_and_grads
-        loss, metrics, grads = run(params, batch)
-        with torch.no_grad():
-            updates, opt_state = opt.update(dict(zip(params, grads)),
-                                            state.opt_state, params)
-            torch._foreach_add_(list(params.values()),
-                                [updates[k] for k in params])
+        n = state.opt_state["step"] + 1
+        sc = opt.scalars(n)
+        if graphed is not None and device.type == "cuda":
+            if not live:
+                live["scalars"] = {k: torch.zeros((), device=device)
+                                   for k in sc}
+                live["moments"] = moments(state.opt_state)
+            elif moments(state.opt_state) != live["moments"]:
+                raise ValueError("the optimizer's moments moved since the "
+                                 "first step, and the graphed step reads "
+                                 "them by address: update them in place")
+            for k, v in sc.items():
+                live["scalars"][k].fill_(v)
+            live["opt_state"] = state.opt_state
+            loss, metrics, _ = graphed(params, batch)
+            gnorm = metrics.pop("grad_norm")
+        else:
+            loss, metrics, grads = loss_and_grads(params, batch)
+            gnorm = update(params, grads, state.opt_state, sc)
+        opt_state = opt.advance(state.opt_state, n, sc, gnorm)
         new_state = TrainState(params=params, opt_state=opt_state,
                                step=state.step + 1)
         out = {"loss": loss, "grad_norm": opt_state["grad_norm"],

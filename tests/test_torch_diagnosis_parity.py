@@ -2,9 +2,11 @@
 packages' `IncidentEngine` and `Diagnoser` give the same incidents and the
 same diagnoses.
 
-Two sources of rows: an incident that the evaluation's clean control
+Three sources of rows: an incident that the evaluation's clean control
 closed and diagnosed on the card (``tests/golden/clean_control_incident_card.json``,
-written by ``scripts/clean_control_rate.py --fixture``), and a synthetic
+written by ``scripts/clean_control_rate.py --fixture``), a stall-free one
+(``tests/golden/clean_control_stall_free_card.json``, the flag rows with
+their names from the incident's line that script printed), and a synthetic
 hiccup train — a steady 240-step cell whose collective layer flags ~2% of
 its rows barely past the threshold (the contamination quantile does so by
 construction) while a few host-side slow steps flag the step, runtime and
@@ -15,9 +17,12 @@ evaluation's settings (``gap_s`` 0.25, ``close_after_s`` 0.25,
 
 Also here: how the port's step probe waits for a step on the card (one
 blocking CUDA event) and the rows it leaves, against the reference's; the
-runtime probe's rows written only once a monitored step is timed; and the
-device probe's rows against the reference's.
+runtime layer's rows a step against the reference's (its ``executable_run``
+and the job's graph launch; neither the monitor's own wait nor a device
+time); the runtime probe's rows written only once a monitored step is
+timed; and the device probe's rows against the reference's.
 """
+import collections
 import dataclasses
 import json
 import os
@@ -209,6 +214,42 @@ def test_card_incident_gives_the_reference_s_diagnosis():
                                rtol=1e-9)
 
 
+STALL_FREE_FIXTURE = os.path.join(HERE, "golden",
+                                  "clean_control_stall_free_card.json")
+
+
+def test_stall_free_card_incident_rests_on_rows_the_repaired_layer_drops():
+    """The stall-free clean-control incident that pass B's stream cell
+    closed and diagnosed on the card under the runtime layer of four rows
+    a step: both packages give the card's incident (15 flags) and its
+    blame (``xla_latency``, the card's confidence to the fixture's four
+    decimals of deficit). Its deficit sits on the step probe's own wait
+    (``cudaEventSynchronize``), a row the repaired layer no longer writes
+    (nor ``graph_exec``); without those rows neither package diagnoses
+    anything."""
+    with open(STALL_FREE_FIXTURE) as f:
+        fx = json.load(f)
+    assert fx["stall_free"] and fx["engine"] == ENGINE
+    rows = {k: np.asarray(fx["rows"][k])
+            for k in ("ts", "layer", "node", "step", "deficit", "name")}
+    rows["layer"] = rows["layer"].astype(str)
+    ticks = [float(rows["ts"].max()) + 1.0]
+    incidents, diags = both(rows, ticks, fx["evidence"])
+    (inc,) = incidents
+    assert inc.n_flags == fx["incident"]["n_flags"] == 15
+    (d,) = diags
+    assert d.fault_kind == fx["diagnosis"]["fault_kind"] == "xla_latency"
+    np.testing.assert_allclose(d.confidence, fx["diagnosis"]["confidence"],
+                               rtol=1e-6)
+    gone = np.isin(rows["name"], ["cudaEventSynchronize", "graph_exec"])
+    assert rows["deficit"][gone].sum() > 0.95 * rows["deficit"].sum()
+    kept = {k: v[~gone] for k, v in rows.items()}
+    incidents, diags = both(kept, ticks, fx["evidence"])
+    assert diags == []
+    assert all(i.severity / i.n_flags < Diagnoser().min_mean_deficit
+               for i in incidents)
+
+
 # ---------------------------------------------------------------------------
 # the step probe waits for the step on a blocking event
 # ---------------------------------------------------------------------------
@@ -282,6 +323,79 @@ def test_step_probe_rows_are_the_reference_s():
                                                        cols["step"])])
     assert got[0] == got[1] == [(n, s) for s in range(4)
                                 for n in ("executable_run", "train_step")]
+
+
+class _Graph:
+    """A stand-in for `torch.cuda.CUDAGraph`: a replay that does nothing."""
+
+    def replay(self):
+        pass
+
+
+def test_runtime_layer_rows_a_step_are_the_reference_s(monkeypatch):
+    """A graphed step under the port's step and runtime probes (the CUDA
+    entry points stood in for) leaves, a step, the reference's
+    ``executable_run`` and the job's one ``cudaGraphLaunch``: the step
+    probe's wait for the step passes through the hooked
+    ``Event.synchronize`` unrecorded, and no device-time row is written.
+    The reference's jitted step, past its compile, leaves
+    ``executable_run`` alone (``block_until_ready`` raises no
+    ``jax.monitoring`` event)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.core.events import EventTable as JEventTable
+    from repro.core.events import LAYER_CODE as JLAYER_CODE
+    from repro.core.probes.jax_probe import JaxRuntimeProbe
+    from repro.core.probes.step_probe import StepProbe as JStepProbe
+    from repro_torch.core.events import LAYER_CODE, EventTable
+    from repro_torch.core.probes import CudaRuntimeProbe
+
+    n = 12
+    f = jax.jit(lambda x: (x @ x).sum())
+    x = jnp.ones((16, 16))
+    f(x).block_until_ready()  # compiled before the probes attach
+    jt = JEventTable(256)
+    jrt, jstep = JaxRuntimeProbe(), JStepProbe()
+    jrt.attach(jt)
+    jstep.attach(jt)
+    jfn = jstep.wrap(lambda: f(x))
+    for _ in range(n):
+        jfn()
+    jstep.detach()
+    jrt.detach()
+    jcols = jt.drain_columns()
+    theirs = {str(k): v for k, v in collections.Counter(
+        str(nm) for nm, l in zip(jcols["name"], jcols["layer"])
+        if int(l) == JLAYER_CODE[JLayer.XLA]).items()}
+
+    _Event.made = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    graph = _Graph()
+    table = EventTable(256)
+    t0 = time.perf_counter()
+    rt, step = CudaRuntimeProbe(), StepProbe()
+    rt.attach(table, t0=t0)
+    step.attach(table, t0=t0)
+    fn = step.wrap(graph.replay)
+    for _ in range(n):
+        fn()
+    step.detach()
+    rt.detach()
+    cols = table.drain_columns()
+    mine = collections.Counter(
+        str(nm) for nm, l in zip(cols["name"], cols["layer"])
+        if int(l) == LAYER_CODE[Layer.XLA])
+    assert {k: v / n for k, v in theirs.items()} == {"executable_run": 1.0}
+    assert {k: v / n for k, v in mine.items()} == \
+        {"executable_run": 1.0, "cudaGraphLaunch": 1.0}
+    # the step probe waited every step, through the hooked entry point
+    calls = [c for e in _Event.made for c in e.calls]
+    assert calls.count("record") == calls.count("synchronize") == n
+    assert "synchronize" in vars(_Event)  # the hooks are gone again
 
 
 def test_runtime_rows_wait_until_the_step_is_timed(monkeypatch):

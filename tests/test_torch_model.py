@@ -146,6 +146,47 @@ def test_cpu_step_ignores_the_cuda_graph_option():
         assert torch.equal(finals[0][name], finals[1][name]), name
 
 
+def test_adamw_update_with_tensor_scalars_equals_host_floats():
+    """The optimizer's tensor work as a CUDA graph captures it, with the
+    step's learning rate and bias corrections in 0-dim tensors, against
+    `update` with host floats: parameters, moments and gradient norms equal
+    bit for bit over steps through the warm-up."""
+    cfg = reduced(get_arch("gpt2"))
+    opt = tstep.make_optimizer_for(TrainConfig(learning_rate=1e-3,
+                                               total_steps=10,
+                                               warmup_steps=2))
+    gen = torch.Generator().manual_seed(0)
+    runs = []
+    for tensors in (False, True):
+        params = tmodel.init_params(cfg, seed=0, device=CPU)
+        state = opt.init(params)
+        gen.manual_seed(0)
+        norms = []
+        for n in range(1, 5):
+            grads = {k: torch.randn(p.shape, generator=gen)
+                     for k, p in params.items()}
+            with torch.no_grad():
+                if tensors:
+                    sc = opt.scalars(n)
+                    held = {k: torch.tensor(v, dtype=torch.float32)
+                            for k, v in sc.items()}
+                    updates, gnorm = opt.apply(grads, state, params, held)
+                    state = opt.advance(state, n, sc, gnorm)
+                else:
+                    updates, state = opt.update(grads, state, params)
+                torch._foreach_add_(list(params.values()),
+                                    [updates[k] for k in params])
+            norms.append(state["grad_norm"])
+        runs.append((params, state, norms))
+    (p0, s0, n0), (p1, s1, n1) = runs
+    assert s0["step"] == s1["step"] == 4 and s0["lr"] == s1["lr"]
+    assert all(torch.equal(a, b) for a, b in zip(n0, n1))
+    for name in p0:
+        assert torch.equal(p0[name], p1[name]), name
+        assert torch.equal(s0["mu"][name], s1["mu"][name]), name
+        assert torch.equal(s0["nu"][name], s1["nu"][name]), name
+
+
 def test_cuda_graph_refuses_cpu_tensors():
     cfg = reduced(get_arch("gpt2"))
     params = tmodel.init_params(cfg, device=CPU)

@@ -179,8 +179,11 @@ def test_registry_errors_list_what_is_available():
     assert "available: ('gmm', 'batch'), ('gmm', 'stream')" in str(e.value)
     with pytest.raises(KeyError) as e:
         registry.sink_class("nope")
-    assert ("available: incident_report, jsonl, perfetto, report, wire"
-            in str(e.value))
+    assert ("available: board, incident_report, jsonl, perfetto, "
+            "prometheus, report, wire" in str(e.value))
+    with pytest.raises(KeyError) as je:
+        jregistry.sink_class("nope")
+    assert str(e.value) == str(je.value)
     with pytest.raises(KeyError) as e:
         Session(MonitorSpec(mode="batch", probes=["step", "nope"]),
                 device=CPU).node(0)
@@ -213,16 +216,27 @@ def test_request_probe_builds_from_the_registry():
 
 
 @pytest.mark.parametrize("kind", ["prometheus", "board"])
-def test_live_sinks_name_the_obs_slice(kind):
-    with pytest.raises(NotImplementedError, match="obs/"):
-        sinks_mod.build_sink(SinkSpec(kind))
+def test_live_sinks_build_from_the_registry(kind):
+    """The live sinks are registered, as in the reference, by importing
+    the session package (tests/test_torch_obs.py runs them)."""
+    from repro_torch.obs import sinks as obs_sinks
+
+    sink = sinks_mod.build_sink(SinkSpec(kind))
+    assert sink.kind == kind and sink.wants_session
+    assert isinstance(sink, {"prometheus": obs_sinks.PrometheusSink,
+                             "board": obs_sinks.BoardSink}[kind])
+    assert kind in registry.sink_kinds()
+    assert registry.sink_kinds() == jregistry.sink_kinds()
 
 
-def test_topology_and_telemetry_name_their_slices():
-    """The self-telemetry layer raises naming its slice. (The topology is
-    ported: tests/test_torch_fleet.py.)"""
-    with pytest.raises(NotImplementedError, match="obs/ slice"):
-        Session(MonitorSpec(mode="batch"), device=CPU).obs_layer()
+def test_the_telemetry_layer_is_the_session_s_own():
+    """`obs_layer` builds one `SessionObs` a session and hands it out again.
+    (The topology is ported: tests/test_torch_fleet.py.)"""
+    from repro_torch.obs import SessionObs
+
+    session = Session(MonitorSpec(mode="batch"), device=CPU)
+    obs = session.obs_layer()
+    assert isinstance(obs, SessionObs) and session.obs_layer() is obs
 
 
 # ---------------------------------------------------------------------------
@@ -674,13 +688,26 @@ def test_launcher_without_a_device_needs_a_card():
 
 @pytest.mark.parametrize("flags,module", [
     (["--data-mesh", "2"], "launch/mesh.py"),
-    (["--checkpoint-dir", "ckpt"], "train/checkpoint.py"),
-    (["--metrics-port", "0"], "obs/"),
-    (["--board-out", "b.html"], "obs/"),
+    (["--checkpoint-dir", "ckpt"], None),
+    (["--metrics-port", "0"], None),
+    (["--board-out", "b.html"], None),
     (["--microbatches", "2"], "train/step.py"),
     (["--optimizer", "adafactor"], "optim/")])
-def test_launcher_names_the_slice_of_an_unported_flag(flags, module, capsys):
+def test_launcher_refuses_only_the_flags_still_unported(flags, module,
+                                                        capsys, tmp_path,
+                                                        monkeypatch):
+    """``--data-mesh``, ``--microbatches > 1`` and ``--optimizer
+    adafactor`` exit 2 naming the slice they wait for; the checkpoint and
+    operator-surface flags run (tests/test_torch_ckpt.py and
+    tests/test_torch_obs.py check what they do)."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--log-every", "0", "--monitor-spec",
+            '{"mode": "batch"}', *flags]
+    if module is None:
+        assert launch_train.main(argv) == 0
+        return
     with pytest.raises(SystemExit) as e:
-        launch_train.main(["--reduced", "--device", "cpu", *flags])
+        launch_train.main(argv)
     assert e.value.code == 2
     assert module in capsys.readouterr().err

@@ -225,6 +225,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.serve.continuous", "repro_torch.serve.request",
             "repro_torch.serve.scheduler", "repro_torch.serve.probe",
             "repro_torch.serve.slo", "repro_torch.launch.serve"} <= set(mods)
+    # and those of the checkpoint and operator-surface slice
+    assert {"repro_torch.train.checkpoint", "repro_torch.obs",
+            "repro_torch.obs.metrics", "repro_torch.obs.parser",
+            "repro_torch.obs.board", "repro_torch.obs.httpd",
+            "repro_torch.obs.sinks",
+            "repro_torch.obs.selfmetrics"} <= set(mods)
 
 
 _FORBIDDEN = re.compile(
@@ -253,6 +259,10 @@ def test_port_sources_and_chip_smoke_import_no_jax():
             PORT / "eval" / "matrix.py",
             PORT / "launch" / "evaluate.py", PORT / "launch" / "serve.py",
             PORT / "serve" / "continuous.py", PORT / "serve" / "engine.py",
+            PORT / "train" / "checkpoint.py", PORT / "obs" / "metrics.py",
+            PORT / "obs" / "parser.py", PORT / "obs" / "board.py",
+            PORT / "obs" / "httpd.py", PORT / "obs" / "sinks.py",
+            PORT / "obs" / "selfmetrics.py",
             ROOT / "scripts" / "clean_control_rate.py"} <= set(files)
     hits = [f"{f}:{m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
