@@ -174,9 +174,34 @@ Phases, each printing one JSON line of its own:
    and serve_degraded_device, both modes, 240 decode steps: each cell's
    kernels as pass B's; mean blamed-kind accuracy under 0.5 is listed
    under ``unmet``.
-13. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
+13. ``arch_path``: the reference's other model families and training
+   modes, a process per model (`isolated`). (a) ``--arch-reduced``: every
+   registered architecture at its reduced size in bf16, its graphed
+   forward and backward against eager with one microbatch and two, and its
+   whole train step (forward, backward and the update in one CUDA graph)
+   against the eager step with AdamW, with Adafactor and with AdamW over
+   two microbatches: losses within 1e-3 relative, gradients within 1e-2 of
+   their norm, parameters within 1e-2 of their move. (b) ``--arch-llama``:
+   Llama 3.2 1B at full width (1.24B parameters, bf16, batch 8, sequence
+   128) through `repro_torch.launch.train`, unmonitored (30 steps) and in
+   batch mode with ``--inject-faults`` (200 steps), with
+   ``session_path``'s batch gates: finite loss, the STEP layer's hit rate
+   > 0.5 and > 2x its false rate, gmm_score and gmm_best launched
+   specialised with no plain call, operator and runtime rows, no runtime
+   row in a detection zone; steps/s, ms a step, set-up seconds, peak
+   memory and the unmonitored rate printed. (c) ``--arch-mamba``: Mamba2
+   2.7B at full width in stream mode (100 steps, the weights drawn on the
+   card): finite loss, all four kernels launched specialised with no plain
+   call, no lost batch. (d) ``--arch-moe``: DeepSeek-V2 at its published
+   widths cut to 2 layers (the dense first layer and one MoE layer of 160
+   experts, top-6, 2 shared; 5.35B parameters; ``reduced`` in the line),
+   Adafactor, two microbatches, unmonitored, learning rate 1e-4: 3 eager
+   steps, then 20 graphed steps from the same weights on the same batch;
+   the first 3 within graph_check's bars of the eager ones, the loss
+   falling; ms a step and the tokens dropped at capacity printed.
+14. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
    K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
-14. ``profile``: torch.profiler over 5 full-width training steps, one
+15. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
@@ -191,7 +216,7 @@ device time per wrapper call, the plain version's, its bound, and beside
 them the launch alone, the eager per-call time, the kernels and memsets a
 wrapper call puts on the stream, counted with torch.profiler, which must be
 one kernel and, for the EM kernels, one memset, and the variants each path
-launched, the fleet, eval, ckpt, obs and serve paths' among them), the card's name and power limit as
+launched, the fleet, eval, ckpt, obs, serve and arch paths' among them), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero before that line. TF32 is off for matmuls
@@ -682,7 +707,8 @@ def check_graphed_train_step(steps=6):
     dev = torch.device("cuda")
     cfg = get_arch("gpt2")
     opt = make_optimizer_for(TrainConfig(learning_rate=1e-3,
-                                         total_steps=steps, warmup_steps=5))
+                                         total_steps=steps, warmup_steps=5),
+                             cfg)
     runs = []
     for graph in (True, False):
         data = SyntheticLMData(cfg, seq_len=128, global_batch=8, seed=0)
@@ -913,7 +939,7 @@ def profile_phase(N, D, K):
     dev = torch.device("cuda")
     cfg = get_arch("gpt2")
     opt = make_optimizer_for(TrainConfig(learning_rate=1e-3, total_steps=18,
-                                         warmup_steps=2))
+                                         warmup_steps=2), cfg)
     data = SyntheticLMData(cfg, seq_len=128, global_batch=8, seed=0)
     batches = [batch_to_device(data.batch(s), dev) for s in range(18)]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2681,11 +2707,463 @@ def check_obs(line):
                            f"{line['variants']}")
 
 
+# ---------------------------------------------------------------------------
+# arch_path: every registered architecture on the card
+# ---------------------------------------------------------------------------
+
+# (optimizer, microbatches) of each reduced model's graphed-step checks
+ARCH_CASES = (("adamw", 1), ("adafactor", 1), ("adamw", 2))
+ARCH_REDUCED_STEPS = 4  # 2 eager warm-up calls, the capture, a replay
+ARCH_LLAMA = "llama3.2-1b"
+ARCH_LLAMA_RUNS = (("off", 30), ("batch", 200))
+# 100 steps: four stream flushes, the smoke's time kept in hand
+ARCH_MAMBA, ARCH_MAMBA_STEPS = "mamba2-2.7b", 100
+ARCH_MOE, ARCH_MOE_LAYERS = "deepseek-v2-236b", 2
+# graphed steps; the eager ones they are held to: the two warm-up calls and
+# the first replay of the graph
+ARCH_MOE_STEPS, ARCH_MOE_EAGER = 20, 3
+# a 5.36B model whose every update is clipped to an RMS of one learning
+# rate: 1e-3 moved each weight by 3-7% of its scale a step, and the loss
+# jumped before it fell (12.0 -> 20.6 -> 5.4 over 20 steps)
+ARCH_MOE_LR = 1e-4
+ARCH_BATCH, ARCH_SEQ = 8, 128
+
+
+def _norm(ts):
+    import torch
+
+    return float(torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(list(ts)))))
+
+
+def arch_grads_check(cfg, rt, microbatches, data, dev):
+    """`make_loss_and_grads` (``microbatches`` slices) CUDA-graphed against
+    eager on the same parameters, new batches and perturbed weights at
+    every call: the largest relative loss error and gradient error (the
+    difference's global norm over the gradients')."""
+    import torch
+
+    from repro_torch.models.model import batch_to_device, init_params
+    from repro_torch.train.step import CudaGraphed, make_loss_and_grads
+
+    params = init_params(cfg, seed=0, device=dev)
+    eager = make_loss_and_grads(cfg, rt, microbatches)
+    graphed = CudaGraphed(eager)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = [0.0, 0.0]
+    for s in range(ARCH_REDUCED_STEPS):
+        batch = batch_to_device(data.batch(s), dev)
+        lg, _, gg = graphed(params, batch)
+        le, _, ge = eager(params, batch)
+        worst[0] = max(worst[0], abs(float(lg) - float(le)) / abs(float(le)))
+        worst[1] = max(worst[1], _norm(torch._foreach_sub(list(gg), list(ge)))
+                       / _norm(ge))
+        with torch.no_grad():
+            for p in params.values():
+                p.add_(torch.randn(p.shape, generator=gen, device=dev),
+                       alpha=0.01)
+    if graphed.graph is None:
+        raise SmokeFailure(f"arch_path: {cfg.name}'s step was never captured")
+    return worst
+
+
+def arch_step_check(cfg, rt, optimizer, microbatches, data, dev):
+    """The whole train step — forward, backward and the update — as one
+    CUDA graph against the eager step from the same seed: the largest
+    relative loss error over the steps, and the parameters' difference over
+    how far the eager steps moved them (model-wide norms)."""
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.models.model import batch_to_device
+    from repro_torch.train.step import (init_train_state, make_optimizer_for,
+                                        make_train_step)
+
+    opt = make_optimizer_for(TrainConfig(
+        learning_rate=1e-3, total_steps=ARCH_REDUCED_STEPS, warmup_steps=1,
+        optimizer=optimizer), cfg)
+    runs = []
+    for graph in (True, False):
+        state = init_train_state(cfg, opt, seed=0, device=dev)
+        init = [p.detach().clone() for p in state.params.values()]
+        fn = make_train_step(cfg, rt, opt, microbatches=microbatches,
+                             cuda_graph=graph)
+        losses = []
+        for s in range(ARCH_REDUCED_STEPS):
+            state, m = fn(state, batch_to_device(data.batch(s), dev))
+            losses.append(float(m["loss"]))
+        runs.append((list(state.params.values()), losses, init))
+    (pg, lg, _), (pe, le, init) = runs
+    if not all(math.isfinite(v) for v in lg + le):
+        raise SmokeFailure(f"arch_path: {cfg.name} {optimizer}: non-finite "
+                           f"loss {lg} {le}")
+    with torch.no_grad():
+        moved = _norm(torch._foreach_sub(pe, init))
+        return (max(abs(a - b) / abs(b) for a, b in zip(lg, le)),
+                _norm(torch._foreach_sub(pg, pe)) / moved)
+
+
+def arch_reduced(reset_counts, read_counts, read_all_variants):
+    """``--arch-reduced`` (a process of its own): every registered
+    architecture at its reduced size in bf16 (batch 4, sequence 64: four
+    SSD chunks, the reduced sliding window inside the sequence), its
+    forward and backward graphed against eager with one microbatch and two,
+    and its whole train step graphed against eager with each of
+    ARCH_CASES. Gates: loss within 1e-3 relative; gradients within 1e-2 of
+    their norm; the parameters within 1e-2 of their move."""
+    import torch
+
+    from repro_torch.config import get_arch, list_archs, reduced
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Runtime
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rt = Runtime(torch.bfloat16)
+    out = {}
+    for arch in list_archs():
+        cfg = reduced(get_arch(arch))
+        data = SyntheticLMData(cfg, seq_len=64, global_batch=4, seed=0)
+        res = {f"grads_mb{m}": arch_grads_check(cfg, rt, m, data, dev)
+               for m in (1, 2)}
+        for optimizer, m in ARCH_CASES:
+            res[f"step_{optimizer}_mb{m}"] = arch_step_check(
+                cfg, rt, optimizer, m, data, dev)
+        out[arch] = res
+        bad = {k: v for k, v in res.items()
+               if not (v[0] <= 1e-3 and v[1] <= 1e-2)}
+        if bad:
+            raise SmokeFailure(f"arch_path: {arch}'s graphed step differs "
+                               f"from eager: {bad}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"archs": out, "seconds": time.perf_counter() - t0}
+
+
+def arch_session(train, reset_counts, read_counts, read_all_variants, arch,
+                 mode, steps, extra=()):
+    """`repro_torch.launch.train` at full width (bf16, batch 8, sequence
+    128, ``--inject-faults``) in ``mode``: the run's numbers, and the
+    session's as `session_summary` gives them."""
+    import torch
+
+    spec = {"mode": mode, "probe_options": train.LEGACY_PROBE_OPTIONS}
+    args = train.parser().parse_args(
+        ["--arch", arch, "--device", "cuda", "--steps", str(steps),
+         "--batch", str(ARCH_BATCH), "--seq", str(ARCH_SEQ),
+         "--inject-faults", "--log-every", "0", "--monitor-spec",
+         json.dumps(spec), *extra])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train.train(args)
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    losses = out["losses"]
+    steady = steady_steps_per_s(out["step_end_s"])
+    res = {"steps": steps, "losses_finite": all(math.isfinite(v)
+                                                for v in losses),
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "steps_per_s": out["steps_per_s"], "steady_steps_per_s": steady,
+           "ms_per_step": 1e3 / steady,
+           # init, the host-to-device copy and the session's attach
+           "setup_s": wall - out["seconds"] - out["finalize_s"],
+           "finalize_s": out["finalize_s"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params": train.get_arch(arch).param_count()}
+    if mode != "off":
+        res.update(session_summary(out, mode, steps, launches, plain,
+                                   read_all_variants()))
+        res["lost_batches"] = (out["session"].detector.monitor.stats()
+                               ["aggregator"]["lost_batches"]
+                               if mode == "stream" else 0)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_arch_session(where, res, want):
+    """The kernels ``want`` launched, specialised only, no plain call; the
+    probes' operator and runtime rows; no lost batch."""
+    if not res["losses_finite"]:
+        raise SmokeFailure(f"arch_path {where}: non-finite loss")
+    if not all(res["launches"][k] for k in want) or any(
+            res["plain_calls"].values()) or any(
+            v["general"] for v in res["variants"].values()):
+        raise SmokeFailure(f"arch_path {where}: launches {res['launches']}, "
+                           f"plain calls {res['plain_calls']}, variants "
+                           f"{res['variants']}")
+    rows = res["rows_per_probe"]
+    if not (rows["operator"] and rows["xla"] and res["runtime_probe"]["rows"]):
+        raise SmokeFailure(f"arch_path {where}: no operator or runtime "
+                           f"rows: {rows}")
+    if res["lost_batches"]:
+        raise SmokeFailure(f"arch_path {where}: {res['lost_batches']} lost "
+                           "batches")
+
+
+def arch_llama(reset_counts, read_counts, read_all_variants):
+    """``--arch-llama`` (a process of its own): Llama 3.2 1B at full width
+    (RoPE, SwiGLU, GQA 32/8, tied 128,256-token vocabulary; the weights drawn
+    on the card, ``--init-on-device``) through the launcher,
+    unmonitored, then in batch mode with the full probe suite. Gates: those
+    of ``session_path``'s batch mode — finite loss, the STEP layer's hit
+    rate > 0.5 and > 2x its false rate, gmm_score and gmm_best launched
+    specialised with no plain call, operator and runtime rows, no runtime
+    row in a detection zone or on the worker."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    out = {"arch": ARCH_LLAMA}
+    with runtime_leaks() as leaks:
+        for mode, steps in ARCH_LLAMA_RUNS:
+            out[mode] = arch_session(train, reset_counts, read_counts,
+                                     read_all_variants, ARCH_LLAMA, mode,
+                                     steps, extra=("--init-on-device",))
+    out["runtime_rows_in_zone"] = leaks["in_zone"]
+    out["runtime_rows_on_worker"] = leaks["on_worker"]
+    out["overhead"] = 1.0 - (out["batch"]["steady_steps_per_s"]
+                             / out["off"]["steady_steps_per_s"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def arch_mamba(reset_counts, read_counts, read_all_variants):
+    """``--arch-mamba`` (a process of its own): Mamba2 2.7B at full width
+    (64 SSD layers, state 128, one 128-token chunk; the weights drawn on the
+    card, ``--init-on-device``) through the launcher in stream mode,
+    ARCH_MAMBA_STEPS steps. Gates: finite loss; all four GMM kernels
+    launched, specialised, no plain call; no lost batch; the runtime probe
+    writes no row in a detection zone."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    with runtime_leaks() as leaks:
+        out = arch_session(train, reset_counts, read_counts,
+                           read_all_variants, ARCH_MAMBA, "stream",
+                           ARCH_MAMBA_STEPS, extra=("--init-on-device",))
+    return {"arch": ARCH_MAMBA, "stream": out,
+            "runtime_rows_in_zone": leaks["in_zone"],
+            "runtime_rows_on_worker": leaks["on_worker"],
+            "seconds": time.perf_counter() - t0}
+
+
+def arch_moe(reset_counts, read_counts, read_all_variants):
+    """``--arch-moe`` (a process of its own): DeepSeek-V2 at its published
+    widths cut to ARCH_MOE_LAYERS layers (the dense first layer and one MoE
+    layer of 160 experts, top-6, 2 shared; MLA attention; an untied head),
+    bf16, batch 8, sequence 128, Adafactor, two microbatches, unmonitored;
+    the weights drawn on the card; learning rate ARCH_MOE_LR. First
+    ARCH_MOE_EAGER eager steps on one batch, their parameters kept on the
+    host; then the same weights again
+    (the same seed) and ARCH_MOE_STEPS steps of the CUDA-graphed train step
+    on that batch. Gates: finite losses; each of the first ARCH_MOE_EAGER
+    graphed losses within 1e-3 of the eager one and the parameters after
+    them within 1e-2 of the eager steps' move (graph_check's bars: two
+    graph pools of ~45 GB do not fit one card, so the graphed forward and
+    backward are not held against eager ones apart); the loss falls over
+    the steps. Printed: ms a step, set-up seconds, peak memory, the tokens
+    dropped at capacity at the first and the last weights; ms a step is
+    the median graph replay, its loss read."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.train.step import (TrainState, make_optimizer_for,
+                                        make_train_step)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_arch(ARCH_MOE), n_layers=ARCH_MOE_LAYERS)
+    rt = tmodel.Runtime(torch.bfloat16)
+    opt = make_optimizer_for(TrainConfig(
+        learning_rate=ARCH_MOE_LR, total_steps=ARCH_MOE_STEPS,
+        warmup_steps=2, optimizer="adafactor"), cfg)
+    batch = tmodel.batch_to_device(SyntheticLMData(
+        cfg, seq_len=ARCH_SEQ, global_batch=ARCH_BATCH, seed=0).batch(0), dev)
+    C = tmoe._capacity(ARCH_BATCH * ARCH_SEQ, cfg.moe_top_k, cfg.n_experts,
+                       rt.moe_capacity_factor)
+
+    def drops(params):
+        """(token, choice) pairs the MoE layer drops at capacity C."""
+        got = []
+        route = tmoe.route
+
+        def kept(*a, **k):
+            out = route(*a, **k)
+            got.append(int(tmoe.dropped(out[2], cfg.n_experts, C)))
+            return out
+
+        tmoe.route = kept
+        try:
+            with torch.no_grad():
+                tmodel.forward(params, cfg, rt, batch)
+        finally:
+            tmoe.route = route
+        return got
+
+    def run(graph, steps, params, at=None, hold=None):
+        """``steps`` train steps on ``batch``: the losses, each step's
+        seconds (its loss read), the state, and what ``hold`` returned
+        after step ``at``."""
+        state = TrainState(params, opt.init(params), 0)
+        fn = make_train_step(cfg, rt, opt, microbatches=2, cuda_graph=graph)
+        losses, secs, held = [], [], None
+        for s in range(steps):
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+            if s + 1 == at:
+                held = hold(state.params)
+        del fn  # the graph and its pool
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, secs, state, held
+
+    def distance(params, host):
+        """||params - host|| over the model, a 64M-entry slice at a time
+        (the graph's pool leaves no room for a whole tensor's copy)."""
+        total, chunk = 0.0, 1 << 26
+        with torch.no_grad():
+            for k, p in params.items():
+                a, b = p.reshape(-1), host[k].reshape(-1)
+                for i in range(0, a.numel(), chunk):
+                    d = a[i:i + chunk] - b[i:i + chunk].to(dev)
+                    total += float(torch.linalg.vector_norm(d)) ** 2
+        return math.sqrt(total)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=0, device=dev,
+                                generator_device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    drops_first = drops(params)
+    eager_losses, _, state, _ = run(False, ARCH_MOE_EAGER, params)
+    t0 = time.perf_counter()
+    eager = {k: p.detach().cpu() for k, p in state.params.items()}
+    d2h_s = time.perf_counter() - t0
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    init = tmodel.init_params(cfg, seed=0, device=dev, generator_device=dev)
+    moved = distance(init, eager)
+
+    def hold(params):
+        t = time.perf_counter()
+        return distance(params, eager), time.perf_counter() - t
+
+    losses, secs, state, (diff, compare_s) = run(
+        True, ARCH_MOE_STEPS, init, at=ARCH_MOE_EAGER, hold=hold)
+    del eager
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    drops_last = drops(state.params)
+    replays = sorted(secs[ARCH_MOE_EAGER:])  # after the capture
+    rel_loss = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses[:ARCH_MOE_EAGER], eager_losses))
+    out = {"arch": ARCH_MOE, "reduced": {"n_layers": [
+               get_arch(ARCH_MOE).n_layers, ARCH_MOE_LAYERS]},
+           "params": n_params, "optimizer": "adafactor", "microbatches": 2,
+           "batch": ARCH_BATCH, "seq": ARCH_SEQ,
+           "init_s": init_s, "d2h_s": d2h_s, "compare_s": compare_s,
+           "eager_losses": eager_losses, "losses": losses,
+           "losses_finite": all(math.isfinite(v)
+                                for v in losses + eager_losses),
+           "graphed_vs_eager": {"max_rel_loss_err": rel_loss,
+                                "rel_params_err": diff / moved},
+           "step_s": secs,
+           "ms_per_step": 1e3 * replays[len(replays) // 2],
+           "peak_gb": peak_gb,
+           "capacity": C, "dropped_first": drops_first,
+           "dropped_last": drops_last,
+           "pairs_per_step": ARCH_BATCH * ARCH_SEQ * cfg.moe_top_k,
+           "seconds": time.perf_counter() - t_phase}
+    del state, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def arch_phase():
+    """Phase ``arch_path``: the reference's other families on the card, a
+    process per model (`isolated`): the reduced models' graphed steps
+    (``--arch-reduced``), Llama 3.2 1B monitored in batch mode
+    (``--arch-llama``), Mamba2 2.7B in stream mode (``--arch-mamba``) and a
+    two-layer DeepSeek-V2 (``--arch-moe``). Returns the line; raises on a
+    failed gate."""
+    t_phase = time.perf_counter()
+    line = {"phase": "arch_path",
+            "reduced_models": isolated("--arch-reduced",
+                                       "arch_path reduced"),
+            "llama": isolated("--arch-llama", "arch_path llama"),
+            "mamba": isolated("--arch-mamba", "arch_path mamba"),
+            "moe": isolated("--arch-moe", "arch_path moe")}
+    line["reduced_models"]["cases"] = ARCH_CASES
+    # the one cut of a published configuration: DeepSeek-V2's depth
+    line["reduced"] = {ARCH_MOE: line["moe"]["reduced"]}
+    line["launches"] = {k: line["llama"]["batch"]["launches"][k]
+                        + line["mamba"]["stream"]["launches"][k]
+                        for k in line["mamba"]["stream"]["launches"]}
+    line["variants"] = {k: {v: line["llama"]["batch"]["variants"][k][v]
+                            + line["mamba"]["stream"]["variants"][k][v]
+                            for v in ("specialised", "general")}
+                        for k in line["mamba"]["stream"]["variants"]}
+    line["seconds"] = time.perf_counter() - t_phase
+    try:
+        check_arch(line)
+    finally:
+        emit(line)
+    return line
+
+
+def check_arch(line):
+    """(b) the batch session's gates as ``session_path``'s; (c) the stream
+    session's kernels and wire; (d) graphed = eager and a falling loss."""
+    ll = line["llama"]
+    for where in ("llama", "mamba"):
+        if line[where]["runtime_rows_in_zone"] or \
+                line[where]["runtime_rows_on_worker"]:
+            raise SmokeFailure(f"arch_path {where}: runtime-probe rows in a "
+                               f"detection zone or on the worker")
+    if not ll["off"]["losses_finite"]:
+        raise SmokeFailure("arch_path llama off: non-finite loss")
+    check_arch_session("llama batch", ll["batch"], ("gmm_score", "gmm_best"))
+    step = ll["batch"]["rates"]["step"]
+    if step is None or not (step["hit"] > 0.5
+                            and step["hit"] > 2 * step["false"]):
+        raise SmokeFailure(f"arch_path llama batch: STEP detection too "
+                           f"weak: {step}")
+    check_arch_session("mamba stream", line["mamba"]["stream"],
+                       ("gmm_score", "gmm_best", "gmm_stats", "gmm_update"))
+    mo = line["moe"]
+    g = mo["graphed_vs_eager"]
+    if not mo["losses_finite"]:
+        raise SmokeFailure(f"arch_path moe: non-finite loss: {mo['losses']}")
+    if not (g["max_rel_loss_err"] <= 1e-3 and g["rel_params_err"] <= 1e-2):
+        raise SmokeFailure(f"arch_path moe: graphed step differs from "
+                           f"eager: {g}, losses {mo['losses'][:4]} vs "
+                           f"{mo['eager_losses']}")
+    if not mo["losses"][-1] < mo["losses"][0]:
+        raise SmokeFailure(f"arch_path moe: the loss did not fall: "
+                           f"{mo['losses']}")
+
+
 # what ``chip_smoke.py FLAG OUT [ARG]`` runs in a process of its own
 # (`isolated`; ``--ckpt-run`` is started by ``ckpt_path``'s own process)
 CHILDREN = {"--eval-pass-a": eval_pass_a, "--eval-pass-b": eval_pass_b,
             "--serve-path": serve_phase, "--ckpt-path": ckpt_phase,
-            "--ckpt-run": ckpt_run, "--obs-path": obs_phase}
+            "--ckpt-run": ckpt_run, "--obs-path": obs_phase,
+            "--arch-reduced": arch_reduced, "--arch-llama": arch_llama,
+            "--arch-mamba": arch_mamba, "--arch-moe": arch_moe}
 
 
 def build_phase(build, kmod, card):
@@ -2908,7 +3386,10 @@ def main() -> int:
     # 11. the serve plane: the graphed slot step, the launcher, the gates
     sv = isolated("--serve-path", "serve_path")
 
-    # 12. times at each path's largest shape and at scale
+    # 12. the reference's other families and training modes, a process each
+    ar = arch_phase()
+
+    # 13. times at each path's largest shape and at scale
     t_phase = time.perf_counter()
     N, D, K = shape
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
@@ -2955,7 +3436,8 @@ def main() -> int:
                               "eval_path": ev["launches"][name],
                               "ckpt_path": ck["launches"].get(name, 0),
                               "obs_path": ob["launches"][name],
-                              "serve_path": sv["launches"][name]},
+                              "serve_path": sv["launches"][name],
+                              "arch_path": ar["launches"][name]},
          "kernels_per_call": at_path[name]["nodes"]["kernels"],
          "memsets_per_call": at_path[name]["nodes"]["memsets"],
          "variants_by_path": {"main_path": variants[name],
@@ -2964,7 +3446,8 @@ def main() -> int:
                               "eval_path": ev["variants"][name],
                               "ckpt_path": ck["variants"].get(name),
                               "obs_path": ob["variants"][name],
-                              "serve_path": sv["variants"][name]}}
+                              "serve_path": sv["variants"][name],
+                              "arch_path": ar["variants"][name]}}
         for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")],
         "smoke_seconds": time.perf_counter() - t_smoke})
     print(card, flush=True)

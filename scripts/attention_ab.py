@@ -57,7 +57,8 @@ def workload(dev, steps):
 
     cfg = get_arch("gpt2")
     opt = make_optimizer_for(TrainConfig(learning_rate=1e-3,
-                                         total_steps=steps, warmup_steps=2))
+                                         total_steps=steps, warmup_steps=2),
+                             cfg)
     data = SyntheticLMData(cfg, seq_len=128, global_batch=8, seed=0)
     batches = [batch_to_device(data.batch(s), dev) for s in range(steps)]
     return cfg, opt, batches, init_train_state(cfg, opt, device=dev)

@@ -64,7 +64,14 @@ at its first step (Python's names and the OS threads of /proc/self/task)
 and each OS thread's CPU ms over the cell; beside the process,
 ``nvidia-smi`` every 100 ms (the card's SM and memory clocks, power draw,
 temperature and clock-event reasons, over the cell and over its stalls:
-``host.card``). A cell's line sums these up (the stalls beside the typical
+``host.card``); the cgroup's CPU-quota throttling (``cpu.stat``'s
+``nr_throttled`` and throttled microseconds, v2 or v1) and the machine's
+CPU pressure (/proc/pressure/cpu ``some total``) over each step, each stall
+with its own, and the share of stalls that either of at least 2 ms
+overlapped (``stalls_throttled_or_psi_share``, beside the typical steps');
+once a process, the CPU quota, the CPUs it may run on, torch's threads and
+its OS threads (``process``; ``null`` where a file is missing). A cell's
+line sums these up (the stalls beside the typical
 step); each step's record goes under ``--out``. The graph's device time
 is read from CUDA events this script records around each graph replay.
 ``--stacks`` also arms a `faulthandler.dump_traceback_later` watchdog
@@ -110,6 +117,7 @@ import time
 
 SLOW_MS = 0.5  # a step this much over the cell's median step is slow
 STALL_MS = 4.0  # a step this much over the cell's median step is a stall
+CPU_STARVED_US = 2000  # a step throttled or CPU-pressured this long
 WATCH_SLACK_S = 0.003  # the watchdog fires past the running median + this
 EVIDENCE_LAYERS = ("device", "collective")  # what the diagnoser splits on
 CONDITIONS = ("base", "switch", "gate", "xla_exec", "noproc", "spin",
@@ -193,6 +201,103 @@ def thread_label(tid: int, names: dict) -> str:
     if tid == os.getpid():
         return "main"
     return names.get(tid) or "native"
+
+
+def _cgroup_dirs() -> list:
+    """The directories that may hold this process's CPU controller files,
+    cgroup v2 first, then v1's ``cpu`` hierarchy (as mounted, and under the
+    path /proc/self/cgroup names)."""
+    rel = {}
+    try:
+        with open("/proc/self/cgroup") as f:
+            for line in f:
+                _, ctrls, path = line.rstrip("\n").split(":", 2)
+                for c in (ctrls.split(",") if ctrls else [""]):
+                    rel[c] = path.lstrip("/")
+    except OSError:
+        pass
+    root = "/sys/fs/cgroup"
+    dirs = [os.path.join(root, rel.get("", "")), root]
+    for v1 in ("cpu", "cpu,cpuacct", "cpuacct,cpu"):
+        dirs += [os.path.join(root, v1, rel.get("cpu", "")),
+                 os.path.join(root, v1)]
+    return list(dict.fromkeys(d.rstrip("/") for d in dirs))
+
+
+def _first_file(name: str):
+    for d in _cgroup_dirs():
+        path = os.path.join(d, name)
+        if os.path.isfile(path):
+            return path
+    return None
+
+
+CPU_STAT = _first_file("cpu.stat")
+
+
+def cpu_throttle():
+    """(nr_throttled, throttled microseconds) of this process's cgroup so
+    far (v2 ``throttled_usec``, v1 ``throttled_time`` in ns), or None."""
+    if CPU_STAT is None:
+        return None
+    try:
+        with open(CPU_STAT) as f:
+            kv = dict(line.split() for line in f if line.strip())
+    except (OSError, ValueError):
+        return None
+    if "throttled_usec" in kv:
+        return int(kv.get("nr_throttled", 0)), int(kv["throttled_usec"])
+    if "throttled_time" in kv:
+        return int(kv.get("nr_throttled", 0)), int(kv["throttled_time"]) // 1000
+    return None
+
+
+def cpu_pressure_us():
+    """/proc/pressure/cpu's ``some total`` (microseconds), or None."""
+    try:
+        with open("/proc/pressure/cpu") as f:
+            for line in f:
+                if line.startswith("some"):
+                    return int(line.rsplit("total=", 1)[1])
+    except (OSError, ValueError, IndexError):
+        pass
+    return None
+
+
+def cpu_quota() -> dict:
+    """Once per process: the cgroup's CPU quota (v2 ``cpu.max``, else v1's
+    quota and period), the CPUs this process may run on, torch's intra-op
+    threads and this process's OS threads; None where unreadable."""
+    import torch
+
+    def read(name):
+        path = _first_file(name)
+        if path is None:
+            return None
+        try:
+            with open(path) as f:
+                return f.read().strip()
+        except OSError:
+            return None
+
+    v1 = (read("cpu.cfs_quota_us"), read("cpu.cfs_period_us"))
+    return {"cpu_max": read("cpu.max"),
+            "cfs_quota_period_us": None if v1 == (None, None) else list(v1),
+            "cpu_stat": CPU_STAT,
+            "affinity_cpus": len(os.sched_getaffinity(0)),
+            "torch_threads": torch.get_num_threads(),
+            "torch_interop_threads": torch.get_num_interop_threads(),
+            "os_threads": len(os.listdir("/proc/self/task")),
+            "psi": cpu_pressure_us() is not None,
+            "throttle": cpu_throttle() is not None}
+
+
+def cpu_delta(a, b) -> dict:
+    """One step's throttling and CPU-pressure deltas (None when unread)."""
+    (ta, pa), (tb, pb) = a, b
+    return {"nr_throttled": None if ta is None else tb[0] - ta[0],
+            "throttled_us": None if ta is None else tb[1] - ta[1],
+            "psi_some_us": None if pa is None else pb - pa}
 
 
 # the device sampler's own clock (`clock_sampler`): each sweep's and each
@@ -560,6 +665,7 @@ class StepWatch:
         self.dump = open(self.base + ".stacks.txt", "w") if stacks else None
         self.prior_s = prior_s
         self.spans, self.thread, self.proc, self.cpu = [], [], [], []
+        self.cgroup = []  # each step's throttling and CPU-pressure deltas
         # (STEP row ms, user step ms, event-wait ms, graph device ms)
         self.phases = []
         self.step_ts = []  # each STEP row's ts (the collector's clock)
@@ -591,6 +697,7 @@ class StepWatch:
             IDLE.clear()
             GRAPHS.clear()
             PHASE.update(step=None, ts=None, fn=0.0, sync=0.0, graph=0.0)
+            cg0 = (cpu_throttle(), cpu_pressure_us())
             rt0 = resource.getrusage(resource.RUSAGE_THREAD)
             rp0 = resource.getrusage(resource.RUSAGE_SELF)
             c0, p0 = time.thread_time(), time.process_time()
@@ -602,6 +709,7 @@ class StepWatch:
                 c1, p1 = time.thread_time(), time.process_time()
                 rt1 = resource.getrusage(resource.RUSAGE_THREAD)
                 rp1 = resource.getrusage(resource.RUSAGE_SELF)
+                cg1 = (cpu_throttle(), cpu_pressure_us())
                 IDLE.set()
                 if self.stacks_on:
                     faulthandler.cancel_dump_traceback_later()
@@ -615,6 +723,7 @@ class StepWatch:
                 self.cpu.append((1e3 * (c1 - c0), 1e3 * (p1 - p0)))
                 self.thread.append(rusage_delta(rt0, rt1))
                 self.proc.append(rusage_delta(rp0, rp1))
+                self.cgroup.append(cpu_delta(cg0, cg1))
         return call
 
     def stacks(self) -> dict:
@@ -658,9 +767,10 @@ class StepWatch:
         reads = PROC_READS[self.n_reads:]
         gaps = SPINNER[0].gaps() if SPINNER else []
         rows = []
-        for (a, b), (step, fn, sync, graph), (cpu, pcpu), t in zip(
-                self.spans, self.phases, self.cpu, self.thread):
-            rows.append({"ms": step, "call_ms": 1e3 * (b - a),
+        for (a, b), (step, fn, sync, graph), (cpu, pcpu), t, cg in zip(
+                self.spans, self.phases, self.cpu, self.thread,
+                self.cgroup):
+            rows.append({**cg, "ms": step, "call_ms": 1e3 * (b - a),
                          "fn_ms": fn, "sync_ms": sync, "graph_ms": graph,
                          "main_cpu_ms": cpu, "process_cpu_ms": pcpu,
                          "sampler_ms": overlap_ms(sweeps, a, b),
@@ -705,8 +815,26 @@ class StepWatch:
             "stall_at": stalls[:12],
             "stall_rows": [dict({k: round(float(rows[i][k]), 3)
                                  for k in keys}, step=i,
-                                excess_ms=round(float(ms[i] - med), 3))
+                                excess_ms=round(float(ms[i] - med), 3),
+                                throttled_us=rows[i]["throttled_us"],
+                                nr_throttled=rows[i]["nr_throttled"],
+                                psi_some_us=rows[i]["psi_some_us"])
                            for i in stalls[:8]],
+            # the stalls CPU-quota throttling or CPU pressure of at least
+            # CPU_STARVED_US overlapped, and how often a typical step met it
+            "stalls_throttled": sum(starved(rows[i], "throttled_us")
+                                    for i in stalls),
+            "stalls_psi": sum(starved(rows[i], "psi_some_us")
+                              for i in stalls),
+            "stalls_throttled_or_psi": sum(
+                starved(rows[i], "throttled_us")
+                or starved(rows[i], "psi_some_us") for i in stalls),
+            "typical_throttled_or_psi": sum(
+                starved(rows[i], "throttled_us")
+                or starved(rows[i], "psi_some_us") for i in typical),
+            "typical_steps": len(typical),
+            "throttled_us": sum(r["throttled_us"] or 0 for r in rows),
+            "psi_some_us": sum(r["psi_some_us"] or 0 for r in rows),
             "stalls_in_a_proc_read": sum(rows[i]["proc_read_ms"] > 0
                                          for i in stalls),
             "stalls_in_a_spin_gap": sum(rows[i]["spin_gap_ms"] > 0
@@ -1125,6 +1253,10 @@ def one_run(out: str, dev, watch_dir: str, stacks: bool) -> int:
     return evaluate.main(argv)
 
 
+def starved(row: dict, key: str) -> bool:
+    return row[key] is not None and row[key] >= CPU_STARVED_US
+
+
 def host_totals(hosts) -> dict:
     """Over cells' host summaries: stalls a cell; in a stall, the main
     thread's CPU ms, the sampler's and its /proc reads' ms inside it, and
@@ -1142,8 +1274,8 @@ def host_totals(hosts) -> dict:
                     f"{label}: {frames[0] if frames else '?'}"] += 1
 
     def avg(key):
-        return (round(float(np.mean([r[key] for r in stalls])), 3)
-                if stalls else None)
+        vals = [r[key] for r in stalls if r.get(key) is not None]
+        return round(float(np.mean(vals)), 3) if vals else None
 
     n_stalls = sum(h["stalls"] for h in hosts)
 
@@ -1168,6 +1300,21 @@ def host_totals(hosts) -> dict:
         "stall_spin_gap_ms": avg("spin_gap_ms"),
         "stalls_in_a_proc_read": of_stalls("stalls_in_a_proc_read"),
         "stalls_in_a_spin_gap": of_stalls("stalls_in_a_spin_gap"),
+        "stalls_throttled": of_stalls("stalls_throttled"),
+        "stalls_psi": of_stalls("stalls_psi"),
+        "stalls_throttled_or_psi": of_stalls("stalls_throttled_or_psi"),
+        "stalls_throttled_or_psi_share": round(
+            sum(h["stalls_throttled_or_psi"] for h in hosts)
+            / n_stalls, 4) if n_stalls else None,
+        "typical_throttled_or_psi_share": round(
+            sum(h["typical_throttled_or_psi"] for h in hosts)
+            / max(sum(h["typical_steps"] for h in hosts), 1), 4),
+        "stall_throttled_us": avg("throttled_us"),
+        "stall_psi_some_us": avg("psi_some_us"),
+        "throttled_us_per_cell": float(np.mean(
+            [h["throttled_us"] for h in hosts])) if hosts else None,
+        "psi_some_us_per_cell": float(np.mean(
+            [h["psi_some_us"] for h in hosts])) if hosts else None,
         "steps_in_a_spin_gap_share": round(float(
             sum(h["steps_in_a_spin_gap"] for h in hosts)
             / max(sum(h.get("steps", 0) for h in hosts), 1)), 4),
@@ -1259,6 +1406,7 @@ def cells_main(args, dev, ap) -> int:
     from repro_torch.eval import matrix
 
     print(card(), flush=True)
+    print(json.dumps({"process": cpu_quota()}), flush=True)
     floor = Diagnoser().min_mean_deficit
     n = 240  # chip_smoke.EVAL_STEPS
     if args.after_session:

@@ -342,3 +342,57 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
             else:
                 dense_ffn(f"{p}.ffn", cfg.d_ff)
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# How the reference stacks each parameter (its ``init_params`` pytree)
+# ---------------------------------------------------------------------------
+
+
+def hybrid_structure(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, group_size, n_tail) for hybrid layer stacks."""
+    g = cfg.attn_every
+    n_groups = cfg.n_layers // g
+    return n_groups, g, cfg.n_layers - n_groups * g
+
+
+Stacking = Tuple[str, Tuple[int, ...], Tuple[int, ...]]
+
+
+def stack_layout(cfg: ModelConfig) -> Dict[str, Stacking]:
+    """name -> (the reference's leaf, this layer's index into the leaf's
+    stacked axes, those axes' sizes) for every `param_shapes` name.
+
+    The reference's ``init_params`` stacks layers on leading axes (its
+    ``vmap`` init and ``scan`` forward), not all alike: a transformer's
+    ``layers`` is (n_layers - first_dense_layers, ...) after a *list*
+    ``head_layers`` of unstacked leading dense layers; an SSM's ``layers``
+    is (n_layers, ...); a hybrid's is (n_groups, group_size, ...) with the
+    remainder in ``tail`` (n_tail, ...) and an unstacked ``shared`` block.
+    Leaves outside the layers are unstacked: (name, (), ()). Weight decay
+    and Adafactor's factoring follow the stacked leaf's rank, and
+    Adafactor's moments and update clipping span the whole stacked leaf
+    (`repro_torch.optim.optimizers`); `repro_torch.models.convert` maps
+    the reference's trees onto these names."""
+    out: Dict[str, Stacking] = {}
+    fd = cfg.first_dense_layers if cfg.n_experts else 0
+    hybrid = cfg.family in ("ssm", "hybrid") and cfg.attn_every
+    if hybrid:
+        n_groups, g, n_tail = hybrid_structure(cfg)
+    for name in param_shapes(cfg):
+        if not name.startswith("layers."):
+            out[name] = (name, (), ())
+            continue
+        _, i, rest = name.split(".", 2)
+        i = int(i)
+        if cfg.family in ("ssm", "hybrid") and not hybrid:
+            out[name] = (f"layers.{rest}", (i,), (cfg.n_layers,))
+        elif hybrid and i < n_groups * g:
+            out[name] = (f"layers.{rest}", (i // g, i % g), (n_groups, g))
+        elif hybrid:
+            out[name] = (f"tail.{rest}", (i - n_groups * g,), (n_tail,))
+        elif i < fd:
+            out[name] = (f"head_layers.{i}.{rest}", (), ())
+        else:
+            out[name] = (f"layers.{rest}", (i - fd,), (cfg.n_layers - fd,))
+    return out

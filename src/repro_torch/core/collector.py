@@ -123,6 +123,12 @@ class Collector:
                     "collective-layer events will be missing", RuntimeWarning,
                     stacklevel=2)
         if sample_args is not None and "operator" in self._by_name:
+            # the record is the monitor's own work: the python probe's hook
+            # would log it, and slows a deep model's record several-fold
+            python = self._by_name.get("python")
+            paused = python is not None and python.attached
+            if paused:
+                python.detach()
             try:
                 self._by_name["operator"].register_fn(fn, *sample_args)
             except Exception as e:
@@ -130,6 +136,9 @@ class Collector:
                     f"probe 'operator': register_fn failed ({e!r}); "
                     "operator-layer events will be missing", RuntimeWarning,
                     stacklevel=2)
+            finally:
+                if paused:
+                    python.attach(self.buffer, t0=self.t0)
         return step.wrap(fn)
 
     # -- data -----------------------------------------------------------------

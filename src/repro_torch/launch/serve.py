@@ -20,6 +20,12 @@ request plane. Ctrl-C flushes: the session finalises and the report stays
 valid for whatever was served. It prints tok/s, req/s, the queue wait, TTFT
 and TPOT (p50, p95), and the engine step's wall ms (p50, p90).
 
+``--arch`` must be one whose decode step is ported: a causal dense GQA
+model without RoPE or a sliding window (GPT-2). Any other registered
+architecture exits with an error naming what its decode lacks (MLA, SSD or
+hybrid decode, the sliding-window rolling cache, RoPE decode) and the
+slice it waits for.
+
 ``--static-batch`` keeps the legacy fixed-batch `ServeEngine` path (one
 ``generate`` call, no request accounting) for A/B comparison.
 ``--metrics-port`` serves the monitor's self-telemetry (a ``prometheus``
@@ -38,7 +44,8 @@ import torch
 
 from repro_torch.config import get_arch, reduced
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Runtime, init_params
+from repro_torch.models.model import (Runtime, check_decode_supported,
+                                      init_params)
 from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
                                RequestQueue, ServeEngine)
 from repro_torch.session import MonitorSpec, Session, SinkSpec
@@ -298,7 +305,12 @@ def _run_static(args, cfg, rt, params, session) -> Dict[str, Any]:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    try:
+        check_decode_supported(get_arch(args.arch))
+    except (NotImplementedError, KeyError) as e:
+        ap.error(str(e))
     out = serve(args)
     if out["report"] is not None:
         print(out["report"].render())

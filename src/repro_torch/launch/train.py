@@ -5,9 +5,14 @@
         --steps 200 --batch 8 --seq 128 --monitor-spec '{"mode": "batch"}' \
         --inject-faults
 
-Runs on ``cuda`` unless ``--device cpu`` is given (``--reduced`` is the
-CPU-sized model in float32; without it, GPT-2 at full width in bf16 with the
-forward and backward CUDA-graphed on the card). Monitoring is described by
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--arch`` is any
+registered architecture (`repro_torch.configs`: GPT-2 by default, the
+dense, MoE, SSM, hybrid, encoder and VLM-backbone families); ``--reduced``
+is its CPU-sized config in float32, and without it the model trains at
+full width in bf16 with the whole step — forward, backward and the
+optimizer's update — CUDA-graphed on the card. ``--optimizer`` is
+``adamw`` or ``adafactor``; ``--microbatches N`` accumulates the gradients
+of N slices of each batch. Monitoring is described by
 one declarative `MonitorSpec` (inline JSON, a JSON file path, or the
 REPRO_MONITOR_SPEC env var); the `Session` facade attaches the probe suite at
 runtime, so the model/step code is IDENTICAL with and without monitoring
@@ -32,9 +37,8 @@ state after N steps and a resumed loop starts at step N; the reference
 names the state after step s by s and runs step s again on resume, so a
 resumed run here equals the uninterrupted one.
 
-Flags whose modules are not ported yet exit with an error naming the slice
-they wait for: ``--data-mesh`` (launch/mesh.py), ``--microbatches`` > 1
-and ``--optimizer adafactor`` (train/step.py and optim/).
+``--data-mesh``, whose module (launch/mesh.py) is not ported yet, exits
+with an error naming the slice it waits for.
 """
 from __future__ import annotations
 
@@ -78,8 +82,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=("adamw", "adafactor"))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--init-on-device", action="store_true",
+                    help="draw the initial weights with a generator on "
+                         "--device (seconds instead of minutes for a "
+                         "billion-parameter model; other numbers than the "
+                         "CPU draw)")
     ap.add_argument("--data-mesh", type=int, default=0,
                     help="data-axis size of a local mesh (0 = no mesh)")
     ap.add_argument("--model-mesh", type=int, default=1)
@@ -107,17 +117,12 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _refuse_later_slices(ap: argparse.ArgumentParser, args) -> None:
-    later = [
-        (args.data_mesh, "--data-mesh", "launch/mesh.py"),
-        (args.microbatches > 1, "--microbatches > 1", "train/step.py "
-         "(gradient accumulation)"),
-        (args.optimizer != "adamw", f"--optimizer {args.optimizer}",
-         "optim/ (adafactor)"),
-    ]
-    for given, flag, module in later:
-        if given:
-            ap.error(f"{flag} is not ported yet: it comes with the {module} "
-                     "slice of the port")
+    if args.data_mesh:
+        ap.error("--data-mesh is not ported yet: it comes with the "
+                 "launch/mesh.py slice of the port")
+    if args.microbatches < 1 or args.batch % args.microbatches:
+        ap.error(f"--batch {args.batch} does not split into "
+                 f"--microbatches {args.microbatches}")
 
 
 @contextlib.contextmanager
@@ -167,11 +172,13 @@ def train(args) -> Dict[str, Any]:
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        optimizer=args.optimizer,
                        warmup_steps=args.steps // 10)
-    opt = make_optimizer_for(tcfg)
+    opt = make_optimizer_for(tcfg, cfg)
 
     data = SyntheticLMData(cfg, seq_len=args.seq, global_batch=args.batch,
                            seed=args.seed)
-    state = init_train_state(cfg, opt, seed=args.seed, device=dev)
+    state = init_train_state(cfg, opt, seed=args.seed, device=dev,
+                             generator_device=dev if args.init_on_device
+                             else "cpu")
     step_fn = make_train_step(cfg, rt, opt, microbatches=args.microbatches)
 
     # ---- fault tolerance: auto-resume ----

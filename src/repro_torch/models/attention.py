@@ -1,4 +1,5 @@
-"""GQA attention — ``gqa_forward``, ``init_kv_cache`` and ``gqa_decode`` /
+"""Attention — GQA (with RoPE, sliding windows and bidirectional masks) and
+MLA full-sequence forwards, ``init_kv_cache`` and ``gqa_decode`` /
 ``attention_decode`` of `repro/models/attention.py`.
 
 The reference computes the full-sequence forward blockwise with an online
@@ -20,7 +21,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import Params
+from repro_torch.models.layers import Params, apply_rope
 
 NEG_INF = -1e30
 
@@ -70,31 +71,97 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor,
     return _MatmulF32.apply(a, b, dtype)
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int = 0) -> torch.Tensor:
+    """Full-sequence attention, the reference's ``blocked_attention``
+    (`repro/models/attention.py:68-193`) without its blocking: q (B, S, H,
+    Dk), k (B, S, KV, Dk), v (B, S, KV, Dv) -> (B, S, H, Dv) in q's dtype.
+    Scores are scaled by 1/sqrt(Dk); ``causal`` keeps keys at or before the
+    query, ``window`` > 0 only the ``window`` latest of those (Mistral's
+    sliding window), and neither keeps every key (an encoder)."""
+    B, S, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[-1]
+    G = H // KV
+    # (B*KV, G*S, Dk) queries against (B*KV, S, Dk) keys and (.., Dv) values
+    q = q.reshape(B, S, KV, G, Dk).permute(0, 2, 3, 1, 4).reshape(
+        B * KV, G * S, Dk)
+    k = k.permute(0, 2, 1, 3).reshape(B * KV, S, Dk)
+    v = v.permute(0, 2, 1, 3).reshape(B * KV, S, Dv)
+    s = matmul_f32(q, k.transpose(1, 2), q.dtype) / math.sqrt(Dk)
+    if causal or window:
+        pos = torch.arange(S, device=q.device)
+        blocked = (pos[None, :] > pos[:, None]) if causal else None
+        if window:
+            far = pos[:, None] - pos[None, :] >= window
+            blocked = far if blocked is None else blocked | far
+        s = s.view(B * KV, G, S, S).masked_fill(blocked, NEG_INF).view(
+            B * KV, G * S, S)
+    p = torch.softmax(s, dim=-1)
+    o = matmul_f32(p, v, v.dtype)  # (B*KV, G*S, Dv)
+    return o.view(B, KV, G, S, Dv).permute(0, 3, 1, 2, 4).reshape(
+        B, S, H, Dv).to(q.dtype)
+
+
 def gqa_forward(params: Params, prefix: str, cfg: ModelConfig,
                 x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d_model) -> (B, S, d_model); causal, no sliding window and
-    no rotary embedding (`repro_torch.models.model` checks the config)."""
+    """x: (B, S, d_model) -> (B, S, d_model): GQA with the config's RoPE,
+    causality and sliding window (`repro/models/attention.py:197-224`)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // KV
-    q = x @ params[f"{prefix}.q.kernel"].to(x.dtype)
-    k = x @ params[f"{prefix}.k.kernel"].to(x.dtype)
-    v = x @ params[f"{prefix}.v.kernel"].to(x.dtype)
-    # (B*KV, G*S, hd) queries against (B*KV, S, hd) keys and values
-    q = q.view(B, S, KV, G, hd).permute(0, 2, 3, 1, 4).reshape(B * KV,
-                                                               G * S, hd)
-    k = k.view(B, S, KV, hd).permute(0, 2, 1, 3).reshape(B * KV, S, hd)
-    v = v.view(B, S, KV, hd).permute(0, 2, 1, 3).reshape(B * KV, S, hd)
-    s = matmul_f32(q, k.transpose(1, 2), x.dtype) / math.sqrt(hd)
-    if cfg.causal:
+    q = (x @ params[f"{prefix}.q.kernel"].to(x.dtype)).view(B, S, H, hd)
+    k = (x @ params[f"{prefix}.k.kernel"].to(x.dtype)).view(B, S, KV, hd)
+    v = (x @ params[f"{prefix}.v.kernel"].to(x.dtype)).view(B, S, KV, hd)
+    if cfg.use_rope:
         pos = torch.arange(S, device=x.device)
-        s = s.view(B * KV, G, S, S).masked_fill(
-            pos[None, :] > pos[:, None], NEG_INF).view(B * KV, G * S, S)
-    p = torch.softmax(s, dim=-1)
-    o = matmul_f32(p, v, v.dtype)  # (B*KV, G*S, hd)
-    o = o.view(B, KV, G, S, hd).permute(0, 3, 1, 2, 4).reshape(
-        B, S, H * hd).to(x.dtype)
-    return o @ params[f"{prefix}.out.kernel"].to(x.dtype)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    o = attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
+    return o.reshape(B, S, H * hd) @ params[f"{prefix}.out.kernel"].to(x.dtype)
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor,
+         eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(torch.square(x), -1, keepdim=True) + eps)
+    return (x * scale).to(dt)
+
+
+def mla_forward(params: Params, prefix: str, cfg: ModelConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V2's multi-head latent attention, materialised per head as
+    the reference's full-sequence path does (`repro/models/attention.py:
+    248-280`): queries and keys of nope + rope dims (the rope part of the
+    key shared by all heads), values of ``v_head_dim``."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
+        cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    pos = torch.arange(S, device=x.device)
+
+    def w(name):
+        return params[f"{prefix}.{name}"].to(x.dtype)
+
+    cq = _rms(x @ w("q_down.kernel"), params[f"{prefix}.q_norm.scale"])
+    q = (cq @ w("q_up.kernel")).view(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], pos,
+                                            cfg.rope_theta)
+    ckv = x @ w("kv_down.kernel")
+    c_kv = _rms(ckv[..., :r], params[f"{prefix}.kv_norm.scale"])
+    k_rope = apply_rope(ckv[..., None, r:], pos, cfg.rope_theta)  # (B,S,1,dr)
+    kv = (c_kv @ w("kv_up.kernel")).view(B, S, H, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = attend(q, k, v, causal=cfg.causal)
+    return o.reshape(B, S, H * dv) @ w("out.kernel")
+
+
+def attention_forward(params: Params, prefix: str, cfg: ModelConfig,
+                      x: torch.Tensor) -> torch.Tensor:
+    if cfg.attn_kind == "mla":
+        return mla_forward(params, prefix, cfg, x)
+    return gqa_forward(params, prefix, cfg, x)
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +238,8 @@ def attention_decode(params: Params, prefix: str, cfg: ModelConfig,
                      x: torch.Tensor, cache: Cache,
                      index: Union[int, torch.Tensor],
                      start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The decode attention of ``cfg.attn_kind`` (GQA only in this port)."""
+    """The decode attention of ``cfg.attn_kind`` (GQA without RoPE or a
+    sliding window only in this port: `model.check_decode_supported`)."""
     if cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.attn_kind} decode is not ported yet")
     return gqa_decode(params, prefix, cfg, x, cache, index, start=start)

@@ -4,8 +4,11 @@ into the port.
 `params_from_jax` takes the reference's ``init_params`` pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and returns the port's flat
 parameter dict, so both packages compute the same function. The reference
-stacks the layers on a leading axis (its ``vmap`` init and ``scan``
-forward); here they are unstacked into ``layers.{i}.*``. Both packages keep
+stacks the layers on leading axes (its ``vmap`` init and ``scan``
+forward), each family its own way (`repro_torch.config.stack_layout`:
+a list ``head_layers``, ``layers`` by layer or by (group, layer), ``tail``,
+an unstacked ``shared``); here they are unstacked into ``layers.{i}.*``.
+Both packages keep
 kernels as ``(d_in, d_out)`` and apply them as ``x @ W``, so no kernel is
 transposed. `layer_state_from_numpy` turns one layer's state of the
 reference's ``OnlineGMMDetector`` into the port's, so that both detectors
@@ -20,17 +23,17 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig, param_shapes
+from repro_torch.config import ModelConfig, param_shapes, stack_layout
 from repro_torch.core.gmm import GMMParams, SuffStats
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import Params
-from repro_torch.models.model import check_supported
 from repro_torch.stream.online import _LayerState
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
-    if isinstance(tree, dict):
-        for k, v in tree.items():
+    if isinstance(tree, (dict, list, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
             _flatten(v, f"{prefix}.{k}" if prefix else str(k), out)
     else:
         out[prefix] = np.asarray(tree)
@@ -38,30 +41,26 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device: DeviceLike = None) -> Params:
-    """The reference's (dense) parameter pytree -> the port's flat dict of
-    float32 leaf tensors that require grad."""
-    check_supported(cfg)
+    """The reference's parameter pytree -> the port's flat dict of float32
+    leaf tensors that require grad."""
     dev = resolve_device(device)
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
-    out: Dict[str, np.ndarray] = {}
-    for name, arr in flat.items():
-        if name.startswith("layers."):  # (n_layers, ...) stacked by vmap
-            rest = name[len("layers."):]
-            for i in range(arr.shape[0]):
-                out[f"layers.{i}.{rest}"] = arr[i]
-        else:
-            out[name] = arr
     want = param_shapes(cfg)
-    if set(out) != set(want):
+    layout = stack_layout(cfg)
+    leaves = {leaf for leaf, _, _ in layout.values()}
+    if leaves != set(flat):
         raise ValueError(f"parameter names differ from {cfg.name}'s: "
-                         f"missing {sorted(set(want) - set(out))}, "
-                         f"extra {sorted(set(out) - set(want))}")
-    for name, shape in want.items():
-        if tuple(out[name].shape) != tuple(shape):
-            raise ValueError(f"{name}: shape {out[name].shape}, "
-                             f"expected {shape}")
-    return {name: torch.tensor(out[name], dtype=torch.float32,
+                         f"missing {sorted(leaves - set(flat))}, "
+                         f"extra {sorted(set(flat) - leaves)}")
+    out: Dict[str, np.ndarray] = {}
+    for name, (leaf, idx, stacked) in layout.items():
+        arr = flat[leaf]
+        if tuple(arr.shape) != tuple(stacked) + tuple(want[name]):
+            raise ValueError(f"{leaf}: shape {arr.shape}, expected "
+                             f"{tuple(stacked) + tuple(want[name])}")
+        out[name] = arr[idx] if idx else arr
+    return {name: torch.tensor(np.asarray(out[name]), dtype=torch.float32,
                                device=dev).requires_grad_()
             for name in want}
 

@@ -1,5 +1,5 @@
-"""Primitive layers of the dense path: norms, activations, initializers
-(port of the parts of `repro/models/layers.py` GPT-2 uses).
+"""Primitive layers: norms, rotary embeddings, activations, initializers
+(port of `repro/models/layers.py`).
 
 Parameters live in one flat dict keyed by the names of
 `repro_torch.config.param_shapes` ("layers.0.norm1.scale", ...); a layer
@@ -19,19 +19,20 @@ Params = Dict[str, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# Initializers (drawn on the CPU from an explicit generator)
+# Initializers (drawn from an explicit generator, on its device)
 # ---------------------------------------------------------------------------
 
 def normal_init(gen: torch.Generator, shape: Tuple[int, ...],
                 scale: float = 0.02) -> torch.Tensor:
-    return scale * torch.randn(shape, generator=gen, dtype=torch.float32)
+    return scale * torch.randn(shape, generator=gen, dtype=torch.float32,
+                               device=gen.device)
 
 
 def fanin_init(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
     """Scaled init for projection kernels: N(0, 1/fan_in)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return torch.randn(shape, generator=gen, dtype=torch.float32) \
-        / math.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device) / math.sqrt(fan_in)
 
 
 # ---------------------------------------------------------------------------
@@ -55,9 +56,47 @@ def apply_norm(params: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
     return x.to(dtype)
 
 
+def rms_norm_gated(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: RMSNorm(x * silu(gate)) * scale
+    (`repro/models/layers.py:57`)."""
+    dtype = x.dtype
+    x = x.to(torch.float32) * F.silu(gate.to(torch.float32))
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (RoPE), `repro/models/layers.py:69-88`
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: torch.device = None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim//2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable to (...,
+    seq). The reference's convention: the head's first and second halves
+    are the pair rotated together (not interleaved)."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)  # (hd/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]  # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------
+
+silu = F.silu
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form

@@ -1,19 +1,23 @@
-"""Model composition for the dense family: init, forward, loss — the dense
-branch of `repro/models/model.py`.
+"""Model composition: init, forward, loss for every family of
+`repro/models/model.py` (dense, moe with dense residual and leading dense
+layers, ssm, hybrid, encoder, vlm backbone; `:94-150, 175-316`), and
+decode for the dense GPT-2 path.
 
 Parameters are one flat dict of float32 leaf tensors keyed by
 `repro_torch.config.param_shapes` names. Kernels keep the reference's
 ``(d_in, d_out)`` layout and apply as ``x @ W``; the layer stack is a
-Python loop over ``layers.{i}`` (the reference stacks layers on a leading
-axis and scans them). The embedding is padded to `padded_vocab` and tied to
-the head; padded logit columns are masked out of the loss. Weights are cast
-to the compute dtype where they are used, so gradients reach the float32
-masters.
+Python loop over ``layers.{i}`` (the reference stacks layers on leading
+axes and scans them: `repro_torch.config.stack_layout`). The embedding is
+padded to `padded_vocab`, tied to the head unless the config has an
+``lm_head``; padded logit columns are masked out of the loss. A config with
+``input_mode="embeddings"`` takes (B, S, d_model) frame embeddings in
+place of tokens. Weights are cast to the compute dtype where they are
+used, so gradients reach the float32 masters.
 
 Decode (`init_decode_caches`, `decode_step`) is one token a step against
 per-layer KV caches that the step updates in place, with the reference's
-per-slot ``start`` masking for continuous batching. MoE, SSM, hybrid and
-MLA models come with later slices.
+per-slot ``start`` masking for continuous batching; it covers GQA without
+RoPE or a sliding window (`check_decode_supported`).
 """
 from __future__ import annotations
 
@@ -24,37 +28,47 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig, padded_vocab, param_shapes
+from repro_torch.config import (ModelConfig, hybrid_structure, padded_vocab,
+                                param_shapes)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Params, apply_norm, fanin_init,
                                        normal_init)
 
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Execution knobs (the reference's also carries the device mesh)."""
+    """Execution knobs (the reference's also carries the device mesh and
+    its sharding levers)."""
 
     compute_dtype: torch.dtype = torch.bfloat16
+    moe_capacity_factor: float = 1.25
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration outside the ported dense GPT-2 path."""
+def check_decode_supported(cfg: ModelConfig) -> None:
+    """Raise for a configuration whose decode step is not ported: the
+    port decodes a causal dense GQA model without RoPE or a sliding window
+    (GPT-2's path)."""
+    if not cfg.has_decode:
+        raise NotImplementedError(f"{cfg.name} is an encoder: it has no "
+                                  "decode step (nor has the reference)")
     unsupported = {
-        "family": cfg.family != "dense",
-        "attn_kind": cfg.attn_kind != "gqa",
-        "use_rope": cfg.use_rope,
-        "sliding_window": bool(cfg.sliding_window),
-        "n_experts": bool(cfg.n_experts),
-        "input_mode": cfg.input_mode != "tokens",
-        "tie_embeddings": not cfg.tie_embeddings,
+        "MLA decode": cfg.attn_kind == "mla",
+        "SSD decode": cfg.family in ("ssm", "hybrid"),
+        "the sliding-window rolling cache": bool(cfg.sliding_window),
+        "RoPE decode": cfg.use_rope,
+        "MoE decode": bool(cfg.n_experts),
+        "embeddings input": cfg.input_mode != "tokens",
+        "an untied head": not cfg.tie_embeddings,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet (dense tied-"
-            "embedding GQA without RoPE only)")
+            f"{cfg.name}: {', '.join(bad)} not ported yet: it comes with "
+            "the decode slice of the port (decode of the new families)")
 
 
 # ---------------------------------------------------------------------------
@@ -62,26 +76,64 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> Params:
-    """Random float32 parameters from a CPU generator seeded with ``seed``
-    (the reference's distributions; `jax.random` bits cannot be
-    reproduced, so parity tests load the reference's weights instead)."""
-    check_supported(cfg)
+def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                generator_device: DeviceLike = "cpu") -> Params:
+    """Random float32 parameters from a generator seeded with ``seed``,
+    drawn on ``generator_device`` (the CPU unless asked: the same weights on
+    every device; the reference's distributions, but `jax.random` bits
+    cannot be reproduced, so parity tests load the reference's weights
+    instead)."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gdev = torch.device(generator_device)
+    gen = torch.Generator(device=gdev).manual_seed(seed)
     params: Params = {}
     for name, shape in param_shapes(cfg).items():
-        if name.endswith(".scale"):
-            t = torch.ones(shape)
-        elif name.endswith(".bias"):
-            t = torch.zeros(shape)
-        elif name == "embed.table":
-            t = normal_init(gen, shape)
-        else:
-            t = fanin_init(gen, shape)
+        t = (ssm_mod.init_ssm_leaf(gen, name.split(".mixer.", 1)[1], shape)
+             if ".mixer." in name else None)
+        if t is None and name.endswith(".scale"):
+            t = torch.ones(shape, device=gdev)
+        elif t is None and name.endswith(".bias"):
+            t = torch.zeros(shape, device=gdev)
+        elif t is None:
+            t = (normal_init if name == "embed.table" else fanin_init)(
+                gen, shape)
         params[name] = t.to(dev).requires_grad_()
     return params
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _tf_block(params: Params, prefix: str, cfg: ModelConfig, rt: Runtime,
+              x: torch.Tensor, is_moe: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    h = apply_norm(params, f"{prefix}.norm1", cfg, x)
+    x = x + attn.attention_forward(params, f"{prefix}.attn", cfg, h)
+    h = apply_norm(params, f"{prefix}.norm2", cfg, x)
+    if not is_moe:
+        return x + ffn_mod.ffn_forward(params, f"{prefix}.ffn", cfg, h), None
+    y, aux = moe_mod.moe_forward(params, f"{prefix}.moe", cfg, rt, h)
+    if cfg.dense_residual:
+        y = y + ffn_mod.ffn_forward(params, f"{prefix}.ffn", cfg, h)
+    return x + y, aux
+
+
+def _mamba_block(params: Params, prefix: str, cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(params, f"{prefix}.norm1", cfg, x)
+    return x + ssm_mod.ssd_forward(params, f"{prefix}.mixer", cfg, h)
+
+
+def _shared_attn_block(params: Params, cfg: ModelConfig,
+                       x: torch.Tensor) -> torch.Tensor:
+    """Zamba2's shared attention + MLP block (weight-tied across
+    invocations)."""
+    h = apply_norm(params, "shared.norm1", cfg, x)
+    x = x + attn.attention_forward(params, "shared.attn", cfg, h)
+    h = apply_norm(params, "shared.norm2", cfg, x)
+    return x + ffn_mod.ffn_forward(params, "shared.ffn", cfg, h)
 
 
 # ---------------------------------------------------------------------------
@@ -89,27 +141,51 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def _tf_block(params: Params, prefix: str, cfg: ModelConfig,
-              x: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(params, f"{prefix}.norm1", cfg, x)
-    x = x + attn.gqa_forward(params, f"{prefix}.attn", cfg, h)
-    h = apply_norm(params, f"{prefix}.norm2", cfg, x)
-    return x + ffn_mod.ffn_forward(params, f"{prefix}.ffn", cfg, h)
+def _embed(params: Params, cfg: ModelConfig, rt: Runtime,
+           batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    if cfg.input_mode != "tokens":
+        return batch["embeddings"].to(rt.compute_dtype)
+    # F.embedding, not indexing: at up to 3072 tokens its CUDA backward is a
+    # single kernel with no host sync, so the step can be captured in a graph
+    return F.embedding(batch["tokens"].long(),
+                       params["embed.table"].to(rt.compute_dtype))
+
+
+def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(params, "final_norm", cfg, x)
+    if cfg.tie_embeddings:
+        return x @ params["embed.table"].to(x.dtype).T
+    return x @ params["lm_head.kernel"].to(x.dtype)
 
 
 def forward(params: Params, cfg: ModelConfig, rt: Runtime,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B,S,V_padded), aux_loss)."""
-    table = params["embed.table"]
-    # F.embedding, not indexing: at up to 3072 tokens its CUDA backward is a
-    # single kernel with no host sync, so the step can be captured in a graph
-    x = F.embedding(batch["tokens"].long(), table.to(rt.compute_dtype))
-    for i in range(cfg.n_layers):
-        x = _tf_block(params, f"layers.{i}", cfg, x)
-    x = apply_norm(params, "final_norm", cfg, x)
-    logits = x @ table.to(x.dtype).T
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    """Full-sequence forward. Returns (logits (B,S,V_padded), aux_loss): the
+    MoE layers' summed load-balance loss (zero without experts)."""
+    x = _embed(params, cfg, rt, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.attn_every:
+            n_groups, g, n_tail = hybrid_structure(cfg)
+            for gi in range(n_groups):
+                for j in range(g):
+                    x = _mamba_block(params, f"layers.{gi * g + j}", cfg, x)
+                x = _shared_attn_block(params, cfg, x)
+            for t in range(n_tail):
+                x = _mamba_block(params, f"layers.{n_groups * g + t}", cfg,
+                                 x)
+        else:
+            for i in range(cfg.n_layers):
+                x = _mamba_block(params, f"layers.{i}", cfg, x)
+    else:
+        fd = cfg.first_dense_layers if cfg.n_experts else 0
+        for i in range(cfg.n_layers):
+            x, a = _tf_block(params, f"layers.{i}", cfg, rt, x,
+                             is_moe=bool(cfg.n_experts) and i >= fd)
+            if a is not None:
+                aux = aux + a
+    return _head(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +199,7 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        dtype: torch.dtype = torch.bfloat16,
                        device: DeviceLike = None) -> Caches:
     """One KV cache per layer (the reference stacks them on a layer axis)."""
-    check_supported(cfg)
+    check_decode_supported(cfg)
     dev = resolve_device(device)
     return {"layers": [attn.init_kv_cache(cfg, batch, max_len, dtype, dev)
                        for _ in range(cfg.n_layers)]}
@@ -188,6 +264,9 @@ def loss_fn(params: Params, cfg: ModelConfig, rt: Runtime,
 
 def batch_to_device(batch: Dict[str, np.ndarray],
                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host numpy batch -> int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device).long()
+    """Host numpy batch -> tensors on ``device``: token ids and labels as
+    int64, frame embeddings as float32."""
+    return {k: (torch.as_tensor(v, device=device).float()
+                if np.issubdtype(np.asarray(v).dtype, np.floating)
+                else torch.as_tensor(v, device=device).long())
             for k, v in batch.items()}

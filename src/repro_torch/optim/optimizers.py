@@ -1,17 +1,29 @@
-"""AdamW with global-norm gradient clipping — port of the ``adamw`` of
-`repro/optim/optimizers.py` (Adafactor comes with a later slice).
+"""AdamW and Adafactor with global-norm gradient clipping — port of
+`repro/optim/optimizers.py`.
 
-Same minimal interface as the reference, on flat dicts of tensors:
-    opt = adamw(schedule, ...)
+On flat dicts of tensors, where the reference's ``update`` returns the
+updates, the port applies them in place:
+    opt = adamw(schedule, layout=stack_layout(cfg))
     state = opt.init(params)
-    updates, state = opt.update(grads, state, params)   # apply: p + u
+    sc = opt.scalars(state["step"] + 1)        # the step's host floats
+    gnorm = opt.step_(grads, state, params, sc)   # params += updates
+    state = opt.advance(state, state["step"] + 1, sc, gnorm)
 The step count is a host int, so no update reads a value off the device.
-The moments are updated in place (one copy of them in device memory).
+The moments are updated in place (one copy of them in device memory), and
+``step_`` works piece by piece with the gradients clipped in their own
+buffers, so no second model-sized copy of the gradients or the updates is
+ever held. A CUDA graph captures ``step_`` with the scalars (learning rate,
+bias corrections, Adafactor's ``beta2``) in 0-dim device tensors, which the
+caller fills before each replay (`train.step.make_train_step`); the eager
+step passes the host floats, and both give the same numbers bit for bit.
 
-``update`` is ``scalars`` (the step's learning rate and bias corrections,
-host floats), ``apply`` (the tensor work) and ``advance`` (the new state).
-A CUDA graph captures ``apply`` with the scalars in 0-dim device tensors,
-which the caller fills before each replay (`train.step.make_train_step`).
+The reference applies both optimizers to its *stacked* leaves (layers on
+leading axes: `repro_torch.config.stack_layout`). What depends on a leaf's
+rank follows the stacked rank here too: weight decay (rank >= 2, so a
+stacked per-layer norm scale is decayed and a ``head_layers`` one is not)
+and Adafactor's factoring; Adafactor's factored moments of stacked
+per-layer vectors and its update clipping span the whole stacked leaf, so
+the per-layer tensors are grouped as the reference stacks them.
 """
 from __future__ import annotations
 
@@ -20,39 +32,62 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 import torch
 
 Tensors = Dict[str, torch.Tensor]
+# name -> (the reference's leaf, index into its stacked axes, their sizes)
+Layout = Dict[str, Tuple[str, Tuple[int, ...], Tuple[int, ...]]]
+# tensors a piece of ``step_`` works on at once (bounds its temporaries)
+STEP_CHUNK_BYTES = 1 << 30
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Tensors], Any]
-    update: Callable[[Tensors, Any, Tensors], Tuple[Tensors, Any]]
-    # the pieces of ``update``: step -> its host scalars; (grads, state,
-    # params, scalars) -> (updates, grad norm); (state, step, scalars, grad
-    # norm) -> the new state
+    # step -> its host scalars
     scalars: Callable[[int], Dict[str, float]]
-    apply: Callable[..., Tuple[Tensors, torch.Tensor]]
+    # (grads, state, params, scalars) -> grad norm: the update applied to
+    # the parameters in place, the grads clipped in place
+    step_: Callable[..., torch.Tensor]
+    # (state, step, scalars, grad norm) -> the new state
     advance: Callable[..., Any]
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
-                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """``grads`` scaled to a global L2 norm of at most ``max_norm``, and the
-    norm before clipping (a device scalar: no host sync)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return torch._foreach_mul(grads, scale), norm
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The gradients' global L2 norm (a device scalar: no host sync)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def _decays(name: str, p: torch.Tensor) -> bool:
-    """Weight decay applies to matrices and, as in the reference, to every
-    per-layer tensor: the reference stacks layers on a leading axis, so its
-    per-layer norm scales and biases are 2-D and decayed too (the final
-    norm is not)."""
-    return p.dim() >= 2 or name.startswith("layers.")
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that scales gradients of global norm ``norm`` to at most
+    ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _clip_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """``grads`` scaled in place to a global L2 norm of at most
+    ``max_norm``; the norm before clipping."""
+    norm = _global_norm(grads)
+    torch._foreach_mul_(grads, _clip_scale(norm, max_norm))
+    return norm
+
+
+def stacked_rank(params: Tensors, layout: Layout) -> Dict[str, int]:
+    """Each parameter's rank as the reference's stacked leaf."""
+    return {k: p.dim() + len(layout[k][2]) for k, p in params.items()}
+
+
+def _chunks(keys: List[str], params: Tensors) -> List[List[str]]:
+    out, cur, size = [], [], 0
+    for k in keys:
+        nbytes = params[k].numel() * 4
+        if cur and size + nbytes > STEP_CHUNK_BYTES:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(k)
+        size += nbytes
+    return out + [cur] if cur else out
 
 
 def adamw(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1,
-          grad_clip: float = 1.0) -> Optimizer:
+          grad_clip: float = 1.0, *, layout: Layout) -> Optimizer:
     def init(params: Tensors):
         zeros = {k: torch.zeros_like(p, dtype=torch.float32)
                  for k, p in params.items()}
@@ -64,16 +99,12 @@ def adamw(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
         return {"lr": lr_fn(step), "bc1": 1 - b1 ** step,
                 "bc2": 1 - b2 ** step}
 
-    def apply(grads: Tensors, state, params: Tensors, sc):
-        """The update's tensor work with the step's scalars ``sc`` (host
-        floats, or 0-dim tensors holding them): the updates and the
-        gradients' global norm before clipping; the moments are updated in
-        place."""
+    def updates_of(keys: List[str], g: List[torch.Tensor], state,
+                   params: Tensors, sc, decays) -> List[torch.Tensor]:
+        """The updates of ``keys`` from their clipped gradients ``g``; the
+        moments of ``keys`` are updated in place."""
         # multi-tensor (foreach) arithmetic: a handful of launches for the
         # whole model instead of a dozen per parameter
-        keys = list(params)
-        g, gnorm = _clip_by_global_norm(
-            [grads[k].to(torch.float32) for k in keys], grad_clip)
         mu = [state["mu"][k] for k in keys]
         nu = [state["nu"][k] for k in keys]
         torch._foreach_mul_(mu, b1)
@@ -85,29 +116,163 @@ def adamw(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
         torch._foreach_add_(denom, eps)
         u = torch._foreach_div(mu, sc["bc1"])
         torch._foreach_div_(u, denom)
-        decay = [i for i, k in enumerate(keys) if _decays(k, params[k])]
-        torch._foreach_add_([u[i] for i in decay],
-                            [params[keys[i]].detach().to(torch.float32)
-                             for i in decay], alpha=weight_decay)
+        decay = [i for i, k in enumerate(keys) if decays[k]]
+        if decay:
+            torch._foreach_add_([u[i] for i in decay],
+                                [params[keys[i]].detach().to(torch.float32)
+                                 for i in decay], alpha=weight_decay)
         torch._foreach_mul_(u, -sc["lr"])
-        return {k: x.to(params[k].dtype) for k, x in zip(keys, u)}, gnorm
+        return u
+
+    def step_(grads: Tensors, state, params: Tensors, sc) -> torch.Tensor:
+        """The update with the step's scalars ``sc`` (host floats, or 0-dim
+        tensors holding them) added to ``params``; the moments are updated
+        in place. Returns the gradients' global norm before clipping."""
+        keys = list(params)
+        gnorm = _clip_([grads[k] for k in keys], grad_clip)
+        decays = {k: r >= 2 for k, r in stacked_rank(params, layout).items()}
+        with torch.no_grad():
+            for part in _chunks(keys, params):
+                u = updates_of(part, [grads[k] for k in part], state, params,
+                               sc, decays)
+                torch._foreach_add_([params[k] for k in part], u)
+        return gnorm
 
     def advance(state, step: int, sc: Dict[str, float], gnorm):
         return {"step": step, "mu": state["mu"], "nu": state["nu"],
                 "grad_norm": gnorm, "lr": sc["lr"]}
 
-    def update(grads: Tensors, state, params: Tensors):
-        step = state["step"] + 1
-        sc = scalars(step)
-        updates, gnorm = apply(grads, state, params, sc)
-        return updates, advance(state, step, sc, gnorm)
+    return Optimizer(init, scalars, step_, advance)
 
-    return Optimizer(init, update, scalars, apply, advance)
+
+def adafactor(lr_fn: Callable[[int], float], eps: float = 1e-30,
+              clip_threshold: float = 1.0, decay_rate: float = 0.8,
+              weight_decay: float = 0.0, grad_clip: float = 1.0, *,
+              layout: Layout) -> Optimizer:
+    """Shazeer & Stern 2018, no-momentum variant, as the reference's
+    (`repro/optim/optimizers.py:70-126`): a stacked leaf of rank >= 2 keeps
+    factored (row, col) second moments over its last two axes, a vector the
+    full ones; the update's RMS is clipped to ``clip_threshold`` over the
+    whole stacked leaf. The moments live in the reference's stacked shapes
+    (``m[leaf]``); a layer reads and updates its slice in place."""
+
+    def groups(params: Tensors):
+        """leaf -> (stacked sizes, the leaf's members in stacking order)."""
+        out: Dict[str, Tuple[Tuple[int, ...], List[Tuple[str, Tuple]]]] = {}
+        for k in params:
+            leaf, idx, stacked = layout[k]
+            out.setdefault(leaf, (stacked, []))[1].append((k, idx))
+        for stacked, members in out.values():
+            members.sort(key=lambda m: m[1])
+        return out
+
+    def init(params: Tensors):
+        m = {}
+        for leaf, (stacked, members) in groups(params).items():
+            p = params[members[0][0]]
+            shape = tuple(stacked) + tuple(p.shape)
+            kw = {"dtype": torch.float32, "device": p.device}
+            if len(shape) >= 2:
+                m[leaf] = {"vr": torch.zeros(shape[:-1], **kw),
+                           "vc": torch.zeros(shape[:-2] + shape[-1:], **kw)}
+            else:
+                m[leaf] = {"v": torch.zeros(shape, **kw)}
+        return {"step": 0, "m": m, "grad_norm": 0.0, "lr": 0.0}
+
+    def scalars(step: int) -> Dict[str, float]:
+        # 1 - beta2 is a scalar of its own: taken from a float32 beta2 it
+        # would round otherwise than from the host's, and the graphed step
+        # would part from the eager one
+        rate = step ** (-decay_rate)
+        return {"lr": lr_fn(step), "beta2": 1.0 - rate, "1-beta2": rate}
+
+    def factored_u(g, vr, vc, sc):
+        """One factored leaf (or one layer's slice of it): its moments
+        updated in place, and g over their root."""
+        g2 = g * g + eps
+        vr.mul_(sc["beta2"]).add_(torch.mean(g2, dim=-1) * sc["1-beta2"])
+        vc.mul_(sc["beta2"]).add_(torch.mean(g2, dim=-2) * sc["1-beta2"])
+        del g2
+        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                            min=eps)[..., None]
+        u = g / torch.sqrt(vr[..., None] / denom)
+        return u.div_(torch.sqrt(vc[..., None, :]))
+
+    def leaf_updates(stacked, members, g: List[torch.Tensor], mom,
+                     ps: List[torch.Tensor], sc) -> List[torch.Tensor]:
+        """The updates of one stacked leaf's members, in their order."""
+        r = g[0].dim()
+        if len(stacked) + r < 2:  # an unstacked vector: full moments
+            g2 = g[0] * g[0] + eps
+            mom["v"].mul_(sc["beta2"]).add_(g2 * sc["1-beta2"])
+            us = [g[0] / torch.sqrt(mom["v"])]
+        elif r >= 2:  # per-layer matrices: each layer's slice on its own
+            us = [factored_u(gi, mom["vr"][idx] if idx else mom["vr"],
+                             mom["vc"][idx] if idx else mom["vc"], sc)
+                  for gi, (_, idx) in zip(g, members)]
+        else:  # stacked per-layer vectors: factored across the layers
+            stacked_g = torch.stack(g).reshape(tuple(stacked) + g[0].shape)
+            u = factored_u(stacked_g, mom["vr"], mom["vc"], sc)
+            us = list(u.reshape(len(g), -1).unbind(0))
+        # update clipping: RMS(u) <= clip_threshold over the stacked leaf
+        n = sum(u.numel() for u in us)
+        norms = torch.stack(torch._foreach_norm(us))
+        rms = torch.sqrt(torch.sum(norms * norms) / n)
+        torch._foreach_div_(us, torch.clamp(rms / clip_threshold, min=1.0))
+        if weight_decay and len(stacked) + r >= 2:
+            torch._foreach_add_(us, [p.detach().to(torch.float32)
+                                     for p in ps], alpha=weight_decay)
+        torch._foreach_mul_(us, -sc["lr"])
+        return us
+
+    def each_leaf(grads: Tensors, state, params: Tensors, sc):
+        for leaf, (stacked, members) in groups(params).items():
+            keys = [k for k, _ in members]
+            yield keys, leaf_updates(stacked, members,
+                                     [grads[k] for k in keys],
+                                     state["m"][leaf],
+                                     [params[k] for k in keys], sc)
+
+    def step_(grads: Tensors, state, params: Tensors, sc) -> torch.Tensor:
+        gnorm = _clip_([grads[k] for k in params], grad_clip)
+        with torch.no_grad():
+            for ks, us in each_leaf(grads, state, params, sc):
+                torch._foreach_add_([params[k] for k in ks], us)
+        return gnorm
+
+    def advance(state, step: int, sc: Dict[str, float], gnorm):
+        return {"step": step, "m": state["m"], "grad_norm": gnorm,
+                "lr": sc["lr"]}
+
+    return Optimizer(init, scalars, step_, advance)
+
+
+def moments(opt_state) -> List[torch.Tensor]:
+    """The optimizer state's moment tensors (AdamW's ``mu``/``nu``,
+    Adafactor's ``m``), in a fixed order."""
+    out: List[torch.Tensor] = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k])
+        elif isinstance(tree, torch.Tensor):
+            out.append(tree)
+
+    for key in ("mu", "nu", "m"):
+        if key in opt_state:
+            walk(opt_state[key])
+    return out
 
 
 def make_optimizer(name: str, lr_fn: Callable[[int], float],
-                   weight_decay: float = 0.1,
-                   grad_clip: float = 1.0) -> Optimizer:
+                   weight_decay: float = 0.1, grad_clip: float = 1.0, *,
+                   layout: Layout) -> Optimizer:
+    """``layout``: `repro_torch.config.stack_layout` of the model."""
     if name == "adamw":
-        return adamw(lr_fn, weight_decay=weight_decay, grad_clip=grad_clip)
-    raise ValueError(f"optimizer {name!r} not ported yet (adamw only)")
+        return adamw(lr_fn, weight_decay=weight_decay, grad_clip=grad_clip,
+                     layout=layout)
+    if name == "adafactor":
+        return adafactor(lr_fn, weight_decay=weight_decay,
+                         grad_clip=grad_clip, layout=layout)
+    raise ValueError(f"unknown optimizer {name}")

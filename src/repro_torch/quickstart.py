@@ -96,7 +96,8 @@ def _workload(reduced_model: bool, dev, steps: int, seed: int = 0):
     rt = Runtime(compute_dtype=torch.float32 if reduced_model
                  else torch.bfloat16)
     opt = make_optimizer_for(TrainConfig(learning_rate=1e-3,
-                                         total_steps=steps, warmup_steps=5))
+                                         total_steps=steps, warmup_steps=5),
+                             cfg)
     data = SyntheticLMData(cfg, seq_len=seq, global_batch=batch, seed=seed)
     state = init_train_state(cfg, opt, seed=seed, device=dev)
     return batch, seq, data, state, make_train_step(cfg, rt, opt)

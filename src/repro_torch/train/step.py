@@ -1,6 +1,8 @@
-"""Training step factory: loss + grad + optimizer (port of
-`repro/train/step.py` with ``microbatches=1``; gradient accumulation and
-mixed-precision masters come with a later slice).
+"""Training step factory: loss + grad + optimizer, with microbatch gradient
+accumulation (port of `repro/train/step.py`; the reference's
+``mixed_precision`` runtime lever, bf16 forward weights over float32
+masters, is what the port's forward does anyway: weights are cast to the
+compute dtype where they are used).
 
 The reference jit-compiles the whole step into one executable. Run eagerly
 on the card, GPT-2's forward, backward and optimizer are nearly two
@@ -21,12 +23,13 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.config import ModelConfig, TrainConfig, stack_layout
 from repro_torch.device import DeviceLike
 from repro_torch.models.layers import Params
 from repro_torch.models.model import (Runtime, batch_to_device, init_params,
                                       loss_fn)
 from repro_torch.optim import Optimizer, make_optimizer, make_schedule
+from repro_torch.optim.optimizers import moments
 
 Batch = Dict[str, torch.Tensor]
 # (loss, metrics, grads in the order of params) — all detached
@@ -41,30 +44,75 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(cfg: ModelConfig, opt: Optimizer, seed: int = 0,
-                     device: DeviceLike = None) -> TrainState:
-    params = init_params(cfg, seed=seed, device=device)
+                     device: DeviceLike = None,
+                     generator_device: DeviceLike = "cpu") -> TrainState:
+    params = init_params(cfg, seed=seed, device=device,
+                         generator_device=generator_device)
     return TrainState(params=params, opt_state=opt.init(params), step=0)
 
 
-def make_optimizer_for(cfg_t: TrainConfig) -> Optimizer:
+def make_optimizer_for(cfg_t: TrainConfig, cfg: ModelConfig) -> Optimizer:
+    """``cfg``: the model, whose stacking (`stack_layout`) decides weight
+    decay and Adafactor's factoring as the reference's stacked leaves do."""
     sched = make_schedule(cfg_t.schedule, cfg_t.learning_rate,
                           cfg_t.warmup_steps, cfg_t.total_steps)
     return make_optimizer(cfg_t.optimizer, sched,
                           weight_decay=cfg_t.weight_decay,
-                          grad_clip=cfg_t.grad_clip)
+                          grad_clip=cfg_t.grad_clip,
+                          layout=stack_layout(cfg))
 
 
-def make_loss_and_grads(cfg: ModelConfig, rt: Runtime
+def make_loss_and_grads(cfg: ModelConfig, rt: Runtime, microbatches: int = 1,
+                        grad_dtype: torch.dtype = torch.bfloat16
                         ) -> Callable[[Params, Batch], LossAndGrads]:
-    """fn(params, batch) -> (loss, metrics, grads): forward and backward."""
+    """fn(params, batch) -> (loss, metrics, grads): forward and backward,
+    over ``microbatches`` slices of the batch (module docstring)."""
 
-    def loss_and_grads(params: Params, batch: Batch) -> LossAndGrads:
+    def single(params: Params, batch: Batch) -> LossAndGrads:
         loss, metrics = loss_fn(params, cfg, rt, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
-    return loss_and_grads
+    def accumulated(params: Params, batch: Batch) -> LossAndGrads:
+        n = next(iter(batch.values())).shape[0]
+        if n % microbatches:
+            raise ValueError(f"batch of {n} does not split into "
+                             f"{microbatches} microbatches")
+        plist = list(params.values())
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in plist]
+
+        def add_to(a):
+            # each parameter's gradient is added to the accumulator as soon
+            # as the backward has it, and freed: no microbatch's whole set
+            # of gradients is ever held beside the accumulator
+            def hook(p):
+                with torch.no_grad():
+                    a.add_(p.grad.to(grad_dtype))
+                p.grad = None
+            return hook
+
+        for p in plist:
+            p.grad = None
+        hooks = [p.register_post_accumulate_grad_hook(add_to(a))
+                 for p, a in zip(plist, acc)]
+        loss_sum = None
+        try:
+            for i in range(microbatches):
+                mb = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
+                loss, metrics = loss_fn(params, cfg, rt, mb)
+                torch.autograd.backward(loss, inputs=plist)
+                loss = loss.detach()
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+        finally:
+            for h in hooks:
+                h.remove()
+        with torch.no_grad():
+            torch._foreach_div_(acc, float(microbatches))
+        return (loss_sum / microbatches,
+                {k: v.detach() for k, v in metrics.items()}, tuple(acc))
+
+    return single if microbatches == 1 else accumulated
 
 
 class CudaGraphed:
@@ -133,23 +181,17 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
 
     On a CUDA device the forward, backward and update run as one CUDA graph
     unless ``cuda_graph=False``. The parameters and the optimizer's moments
-    are updated in place (``p += u`` under ``no_grad``) to keep one copy of
-    them; the returned state holds the same tensors. Metrics stay on the
-    device: reading one is the caller's sync."""
-    if microbatches != 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
-    loss_and_grads = make_loss_and_grads(cfg, rt)
+    are updated in place (`Optimizer.step_`) to keep one copy of them; the
+    returned state holds the same tensors. Metrics stay on the device:
+    reading one is the caller's sync."""
+    loss_and_grads = make_loss_and_grads(cfg, rt, microbatches)
     # what the graphed step reads by address: the optimizer state's moments
     # and the step's scalars (0-dim tensors, filled before each call)
     live: Dict[str, Any] = {}
 
     def update(params: Params, grads, opt_state, sc) -> torch.Tensor:
         with torch.no_grad():
-            updates, gnorm = opt.apply(dict(zip(params, grads)), opt_state,
-                                       params, sc)
-            torch._foreach_add_(list(params.values()),
-                                [updates[k] for k in params])
-        return gnorm
+            return opt.step_(dict(zip(params, grads)), opt_state, params, sc)
 
     def whole_step(params: Params, batch: Batch) -> LossAndGrads:
         loss, metrics, grads = loss_and_grads(params, batch)
@@ -158,9 +200,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
 
     graphed = CudaGraphed(whole_step) if cuda_graph else None
 
-    def moments(opt_state) -> List[int]:
-        return [t.data_ptr() for k in ("mu", "nu")
-                for t in opt_state[k].values()]
+    def addresses(opt_state) -> List[int]:
+        return [t.data_ptr() for t in moments(opt_state)]
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -174,8 +215,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
             if not live:
                 live["scalars"] = {k: torch.zeros((), device=device)
                                    for k in sc}
-                live["moments"] = moments(state.opt_state)
-            elif moments(state.opt_state) != live["moments"]:
+                live["moments"] = addresses(state.opt_state)
+            elif addresses(state.opt_state) != live["moments"]:
                 raise ValueError("the optimizer's moments moved since the "
                                  "first step, and the graphed step reads "
                                  "them by address: update them in place")

@@ -142,7 +142,7 @@ def test_restore_follows_the_like_state_s_leaves(tmp_path):
     """A `TrainState` comes back as one: each tensor in the dtype and with
     the ``requires_grad`` of ``like``'s leaf, the host numbers as saved."""
     cfg = reduced(get_arch("gpt2"))
-    opt = make_optimizer_for(TrainConfig(total_steps=4))
+    opt = make_optimizer_for(TrainConfig(total_steps=4), cfg)
     state = init_train_state(cfg, opt, seed=0, device="cpu")._replace(step=3)
     ckpt.save_checkpoint(str(tmp_path), 3, state)
     like = init_train_state(cfg, opt, seed=1, device="cpu")
@@ -166,7 +166,7 @@ def test_full_train_resume_equivalence(tmp_path):
     cfg = reduced(get_arch("gpt2"))
     rt = Runtime(compute_dtype=torch.float32)
     tcfg = TrainConfig(learning_rate=1e-3, total_steps=8, warmup_steps=1)
-    opt = make_optimizer_for(tcfg)
+    opt = make_optimizer_for(tcfg, cfg)
     data = SyntheticLMData(cfg, seq_len=16, global_batch=4, seed=1)
     step_fn = make_train_step(cfg, rt, opt)
 
@@ -230,9 +230,9 @@ def test_launcher_resume_after_sigint_equals_the_uninterrupted_run(
     assert first["losses"] + second["losses"] == full["losses"]
     assert not [d for d in os.listdir(tmp_path / "cut")
                 if d.endswith(".tmp")]
-    like = init_train_state(reduced(get_arch("gpt2")),
-                            make_optimizer_for(TrainConfig(total_steps=12)),
-                            device="cpu")
+    cfg = reduced(get_arch("gpt2"))
+    like = init_train_state(cfg, make_optimizer_for(TrainConfig(
+        total_steps=12), cfg), device="cpu")
     w_full, _ = ckpt.restore_checkpoint(str(tmp_path / "full"), 12, like)
     w_cut, _ = ckpt.restore_checkpoint(str(tmp_path / "cut"), 12, like)
     for k in w_full.params:

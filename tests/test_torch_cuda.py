@@ -1,7 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions
 (the EM kernels with poisoned padding rows, and bitwise repeatable), the
 wrappers' input checks, the CUDA-graphed train step (its forward and
-backward, and the whole step with the update) against the eager one, a
+backward, and the whole step with the update) against the eager one, for
+GPT-2 and for every registered family with AdamW, Adafactor and two
+microbatches, a
 GMM fit and a streaming detector's warmup and tick on the card against the
 same on the CPU, the eval runner's graphed synthetic step against the eager
 one and one scenario-matrix cell on the card, the serve plane's graphed
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from repro_torch.config import get_arch, reduced
+from repro_torch.configs import ASSIGNED
 from repro_torch.core.gmm import GMM
 from repro_torch.data import SyntheticLMData
 from repro_torch.core.events import Event, Layer
@@ -131,7 +134,7 @@ def test_graphed_train_step_matches_the_eager_step(cuda):
 
     cfg = reduced(get_arch("gpt2"))
     opt = make_optimizer_for(TrainConfig(learning_rate=1e-3, total_steps=8,
-                                         warmup_steps=2))
+                                         warmup_steps=2), cfg)
     data = SyntheticLMData(cfg, seq_len=32, global_batch=4, seed=0)
     runs = []
     for graph in (True, False):
@@ -166,6 +169,60 @@ def test_graphed_train_step_matches_the_eager_step(cuda):
             <= 1e-4 * norm(want)
     with pytest.raises(ValueError, match="moments moved"):
         fg(init_train_state(cfg, opt, seed=0, device=cuda), data.batch(0))
+
+
+@pytest.mark.parametrize("optimizer,microbatches",
+                         [("adamw", 1), ("adafactor", 1), ("adamw", 2)])
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_graphed_step_of_every_family_matches_eager(cuda, arch, optimizer,
+                                                    microbatches):
+    """Each registered family at reduced size (float32, four SSD chunks,
+    the sliding window inside the sequence): the graphed forward and
+    backward against eager on the same weights, and the whole train step
+    (forward, backward and the update in one graph) against the eager step
+    from the same seed, with AdamW, Adafactor and two microbatches."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.step import (init_train_state, make_optimizer_for,
+                                        make_train_step)
+
+    cfg = reduced(get_arch(arch))
+    rt = Runtime(torch.float32)
+    data = SyntheticLMData(cfg, seq_len=64, global_batch=4, seed=0)
+    params = init_params(cfg, seed=0, device=cuda)
+    eager = make_loss_and_grads(cfg, rt, microbatches)
+    graphed = CudaGraphed(eager)
+    for s in range(4):
+        batch = batch_to_device(data.batch(s), cuda)
+        lg, _, gg = graphed(params, batch)
+        le, _, ge = eager(params, batch)
+        torch.testing.assert_close(lg, le, rtol=1e-5, atol=1e-6)
+        for a, b in zip(gg, ge):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert graphed.graph is not None
+    opt = make_optimizer_for(TrainConfig(learning_rate=1e-3, total_steps=4,
+                                         warmup_steps=1,
+                                         optimizer=optimizer), cfg)
+    runs = []
+    for graph in (True, False):
+        state = init_train_state(cfg, opt, seed=0, device=cuda)
+        fn = make_train_step(cfg, rt, opt, microbatches=microbatches,
+                             cuda_graph=graph)
+        losses = []
+        for s in range(4):
+            state, m = fn(state, data.batch(s))
+            losses.append(m["loss"])
+        runs.append((state.params, losses))
+    (pg, lg), (pe, le) = runs
+    for a, b in zip(lg, le):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    init = init_params(cfg, seed=0, device=cuda)
+
+    def norm(ts):
+        return float(torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(ts))))
+
+    moved = norm([pe[k] - init[k] for k in pe])
+    assert norm([pg[k] - pe[k] for k in pe]) <= 1e-3 * moved
 
 
 def test_gmm_fit_on_the_card_matches_the_cpu(cuda):

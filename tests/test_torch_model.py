@@ -25,9 +25,11 @@ from repro.optim import schedule as jschedule  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 from repro_torch.config import TrainConfig, get_arch, param_shapes, reduced  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.optim import schedule as tschedule  # noqa: E402
+from repro_torch.optim.optimizers import moments  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
 CPU = "cpu"
@@ -77,7 +79,7 @@ def test_adamw_step_matches_jax(vocab):
     jstate, jm = jfn(jstate, jax.tree.map(jnp.asarray, b))
     topt = tstep.make_optimizer_for(TrainConfig(learning_rate=1e-3,
                                                 total_steps=10,
-                                                warmup_steps=2))
+                                                warmup_steps=2), tcfg)
     tstate = tstep.TrainState(tp, topt.init(tp), 0)
     tfn = tstep.make_train_step(tcfg, tmodel.Runtime(torch.float32), topt)
     tstate, tm = tfn(tstate, b)
@@ -114,9 +116,18 @@ def test_params_from_jax_rejects_a_foreign_tree():
 
 
 def test_unported_model_features_raise():
-    cfg = dataclasses.replace(reduced(get_arch("gpt2")), use_rope=True)
-    with pytest.raises(NotImplementedError, match="use_rope"):
-        tmodel.init_params(cfg, device=CPU)
+    """What stays unported refuses by name: decode past GPT-2's dense GQA
+    path (MLA, RoPE, the sliding-window rolling cache), and the launcher's
+    ``--data-mesh``."""
+    for arch, what in (("deepseek-v2-236b", "MLA decode"),
+                       ("llama3.2-1b", "RoPE decode"),
+                       ("h2o-danube-3-4b", "rolling cache")):
+        cfg = reduced(get_arch(arch))
+        with pytest.raises(NotImplementedError, match=what):
+            tmodel.init_decode_caches(cfg, 2, 16, device=CPU)
+    tmodel.check_decode_supported(reduced(get_arch("gpt2")))
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--reduced", "--device", "cpu", "--data-mesh", "2"])
 
 
 @pytest.mark.parametrize("name", ["cosine", "linear", "constant"])
@@ -132,7 +143,7 @@ def test_cpu_step_ignores_the_cuda_graph_option():
     both settings run the same eager step."""
     cfg = reduced(get_arch("gpt2"))
     opt = tstep.make_optimizer_for(TrainConfig(learning_rate=1e-3,
-                                               total_steps=10))
+                                               total_steps=10), cfg)
     data = SyntheticLMData(cfg, seq_len=16, global_batch=2, seed=0)
     finals = []
     for graph in (True, False):
@@ -146,15 +157,16 @@ def test_cpu_step_ignores_the_cuda_graph_option():
         assert torch.equal(finals[0][name], finals[1][name]), name
 
 
-def test_adamw_update_with_tensor_scalars_equals_host_floats():
-    """The optimizer's tensor work as a CUDA graph captures it, with the
-    step's learning rate and bias corrections in 0-dim tensors, against
-    `update` with host floats: parameters, moments and gradient norms equal
-    bit for bit over steps through the warm-up."""
+def tensor_scalars_equal_host_floats(optimizer):
+    """`Optimizer.step_` as the CUDA graph captures and replays it, with the
+    step's scalars in 0-dim tensors, against the same update with host
+    floats, as the eager step runs it: parameters, moments and gradient
+    norms equal bit for bit over steps through the warm-up."""
     cfg = reduced(get_arch("gpt2"))
     opt = tstep.make_optimizer_for(TrainConfig(learning_rate=1e-3,
                                                total_steps=10,
-                                               warmup_steps=2))
+                                               warmup_steps=2,
+                                               optimizer=optimizer), cfg)
     gen = torch.Generator().manual_seed(0)
     runs = []
     for tensors in (False, True):
@@ -165,17 +177,11 @@ def test_adamw_update_with_tensor_scalars_equals_host_floats():
         for n in range(1, 5):
             grads = {k: torch.randn(p.shape, generator=gen)
                      for k, p in params.items()}
-            with torch.no_grad():
-                if tensors:
-                    sc = opt.scalars(n)
-                    held = {k: torch.tensor(v, dtype=torch.float32)
-                            for k, v in sc.items()}
-                    updates, gnorm = opt.apply(grads, state, params, held)
-                    state = opt.advance(state, n, sc, gnorm)
-                else:
-                    updates, state = opt.update(grads, state, params)
-                torch._foreach_add_(list(params.values()),
-                                    [updates[k] for k in params])
+            sc = opt.scalars(n)
+            held = {k: torch.tensor(v, dtype=torch.float32)
+                    for k, v in sc.items()}
+            gnorm = opt.step_(grads, state, params, held if tensors else sc)
+            state = opt.advance(state, n, sc, gnorm)
             norms.append(state["grad_norm"])
         runs.append((params, state, norms))
     (p0, s0, n0), (p1, s1, n1) = runs
@@ -183,8 +189,19 @@ def test_adamw_update_with_tensor_scalars_equals_host_floats():
     assert all(torch.equal(a, b) for a, b in zip(n0, n1))
     for name in p0:
         assert torch.equal(p0[name], p1[name]), name
-        assert torch.equal(s0["mu"][name], s1["mu"][name]), name
-        assert torch.equal(s0["nu"][name], s1["nu"][name]), name
+    m0, m1 = moments(s0), moments(s1)
+    assert len(m0) == len(m1) > 0
+    assert all(torch.equal(a, b) for a, b in zip(m0, m1))
+
+
+def test_adamw_update_with_tensor_scalars_equals_host_floats():
+    """AdamW: the learning rate and bias corrections in 0-dim tensors."""
+    tensor_scalars_equal_host_floats("adamw")
+
+
+def test_adafactor_update_with_tensor_scalars_equals_host_floats():
+    """Adafactor: the learning rate and the step's ``beta2``."""
+    tensor_scalars_equal_host_floats("adafactor")
 
 
 def test_cuda_graph_refuses_cpu_tensors():
@@ -202,7 +219,7 @@ def test_loss_decreases_over_training():
     cfg = reduced(get_arch("gpt2"))
     opt = tstep.make_optimizer_for(TrainConfig(learning_rate=3e-3,
                                                total_steps=40,
-                                               warmup_steps=4))
+                                               warmup_steps=4), cfg)
     data = SyntheticLMData(cfg, seq_len=32, global_batch=8, seed=0)
     state = tstep.init_train_state(cfg, opt, seed=0, device=CPU)
     step_fn = tstep.make_train_step(cfg, tmodel.Runtime(torch.float32), opt)

@@ -44,7 +44,8 @@ def small_training(steps=8):
     """The reduced GPT-2 on the CPU: (state, step_fn, data)."""
     cfg = reduced(get_arch("gpt2"))
     opt = make_optimizer_for(TrainConfig(learning_rate=1e-3,
-                                         total_steps=steps, warmup_steps=1))
+                                         total_steps=steps, warmup_steps=1),
+                             cfg)
     data = SyntheticLMData(cfg, seq_len=16, global_batch=2, seed=0)
     state = init_train_state(cfg, opt, seed=0, device=CPU)
     return state, make_train_step(cfg, Runtime(torch.float32), opt), data

@@ -691,15 +691,16 @@ def test_launcher_without_a_device_needs_a_card():
     (["--checkpoint-dir", "ckpt"], None),
     (["--metrics-port", "0"], None),
     (["--board-out", "b.html"], None),
-    (["--microbatches", "2"], "train/step.py"),
-    (["--optimizer", "adafactor"], "optim/")])
+    (["--microbatches", "2"], None),
+    (["--optimizer", "adafactor"], None)])
 def test_launcher_refuses_only_the_flags_still_unported(flags, module,
                                                         capsys, tmp_path,
                                                         monkeypatch):
-    """``--data-mesh``, ``--microbatches > 1`` and ``--optimizer
-    adafactor`` exit 2 naming the slice they wait for; the checkpoint and
-    operator-surface flags run (tests/test_torch_ckpt.py and
-    tests/test_torch_obs.py check what they do)."""
+    """``--data-mesh`` exits 2 naming the slice it waits for; the
+    checkpoint and operator-surface flags, ``--microbatches 2`` and
+    ``--optimizer adafactor`` run (tests/test_torch_ckpt.py,
+    tests/test_torch_obs.py and tests/test_torch_archs*.py check what they
+    do)."""
     monkeypatch.chdir(tmp_path)
     argv = ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
             "--seq", "16", "--log-every", "0", "--monitor-spec",

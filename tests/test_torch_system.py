@@ -45,7 +45,7 @@ def test_monitored_training_detects_injected_faults():
     loaded host vary by more than the injected latency."""
     cfg = reduced(get_arch("gpt2"))
     tcfg = TrainConfig(learning_rate=1e-3, total_steps=120, warmup_steps=5)
-    opt = make_optimizer_for(tcfg)
+    opt = make_optimizer_for(tcfg, cfg)
     data = SyntheticLMData(cfg, seq_len=32, global_batch=4, seed=0)
     state = init_train_state(cfg, opt, seed=0, device=CPU)
     step_fn = make_train_step(cfg, Runtime(torch.float32), opt)
