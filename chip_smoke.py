@@ -190,18 +190,50 @@ Phases, each printing one JSON line of its own:
    specialised with no plain call, operator and runtime rows, no runtime
    row in a detection zone; steps/s, ms a step, set-up seconds, peak
    memory and the unmonitored rate printed. (c) ``--arch-mamba``: Mamba2
-   2.7B at full width in stream mode (100 steps, the weights drawn on the
+   2.7B at full width in stream mode (75 steps, the weights drawn on the
    card): finite loss, all four kernels launched specialised with no plain
    call, no lost batch. (d) ``--arch-moe``: DeepSeek-V2 at its published
    widths cut to 2 layers (the dense first layer and one MoE layer of 160
    experts, top-6, 2 shared; 5.35B parameters; ``reduced`` in the line),
    Adafactor, two microbatches, unmonitored, learning rate 1e-4: 3 eager
-   steps, then 20 graphed steps from the same weights on the same batch;
+   steps, then 10 graphed steps from the same weights on the same batch;
    the first 3 within graph_check's bars of the eager ones, the loss
    falling; ms a step and the tokens dropped at capacity printed.
-14. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
+14. ``serve_arch_path``: decode and serving of the other families, a
+   process per model (`isolated`). (a) ``--serve-arch-reduced``: every
+   registered decoder but GPT-2 at its reduced size: the graphed slot
+   step bitwise equal to the eager one over >= 48 steps with joins and an
+   epoch reset, in bf16 (Pixtral's backbone, which takes embeddings:
+   through the fixed-batch engine, and its slot step on real embeddings
+   with a join and an epoch reset); float32 decode against the float32
+   forward within 1e-4 (H2O-Danube over 48 positions, past its 32-slot
+   ring; MoE at a capacity factor of E / k, where no pair drops), which one
+   planted fault per mechanism must fail (`family_plants`: RoPE's query at
+   ``index + 1``, a ring of ``slots - 1``, no join-time SSM reset, MLA's
+   score without its k_rope term, MoE without Arctic's dense residual);
+   the join oracle: SSM and hybrid lanes bit for bit against a fresh lane
+   (and not so without the reset), RoPE lanes against a static batch at
+   the same absolute positions. (b) ``--serve-arch-llama``: Llama 3.2 1B
+   uncut: graphed = eager; float32 decode within 1e-4; bf16 decode
+   ``e_dec <= 2 e_fwd`` against the float32 forward, with the greedy token
+   where the margin allows; the slot step's graph device ms;
+   `repro_torch.launch.serve` in-process, 4 slots, 64 requests in
+   ``off`` and ``stream`` with SERVE_SLO: tok/s, req/s, TTFT and TPOT
+   p50/p95, the engine step's p50/p90 ms beside the time to read the
+   weights once; gates: every request served, no non-finite step, the step
+   graphed, gmm_update launched in stream mode with specialised variants
+   only and no plain call, no lost batch, no runtime row in a detection
+   zone; the SLO verdict printed, not gated (SERVE_SLO was set for
+   GPT-2's step). (c) ``--serve-arch-mamba``: Mamba2 2.7B uncut, the same
+   with the float32 error reported, not gated, and 32 requests in
+   ``stream`` mode. (d) ``--serve-arch-moe``: DeepSeek-V2 at its published
+   widths cut to 2 layers: graphed = eager; float32 decode within 1e-4 and
+   the bf16 rule at a capacity factor of E / k (positions whose routing a
+   bf16 run flipped left out and counted), no pair dropped there; the
+   pairs dropped at the default capacity printed.
+15. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
    K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
-15. ``profile``: torch.profiler over 5 full-width training steps, one
+16. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
    device's busy share of the wall time, and the costliest kernels.
@@ -216,7 +248,8 @@ device time per wrapper call, the plain version's, its bound, and beside
 them the launch alone, the eager per-call time, the kernels and memsets a
 wrapper call puts on the stream, counted with torch.profiler, which must be
 one kernel and, for the EM kernels, one memset, and the variants each path
-launched, the fleet, eval, ckpt, obs, serve and arch paths' among them), the card's name and power limit as
+launched, the fleet, eval, ckpt, obs, serve, arch and serve_arch paths'
+among them), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failure exits
 non-zero before that line. TF32 is off for matmuls
@@ -1821,16 +1854,21 @@ def isolated(flag, what, timeout=600):
     os.makedirs(os.path.dirname(out), exist_ok=True)
     if os.path.exists(out):
         os.remove(out)
+    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag,
                            out], stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
     sys.stdout.write(proc.stdout)
     sys.stdout.flush()
     if proc.returncode or not os.path.exists(out):
         raise SmokeFailure(f"{what}: its process exited {proc.returncode}: "
                            f"{proc.stderr[-2000:]}")
     with open(out) as f:
-        return json.load(f)
+        got = json.load(f)
+    if isinstance(got, dict):  # the child's start-up and exit included
+        got["process_s"] = wall
+    return got
 
 
 def eval_phase():
@@ -1967,75 +2005,133 @@ def graphed_vs_eager(cfg, rt, params):
             "nonfinite_steps": g.nonfinite_steps + e.nonfinite_steps}
 
 
-def slot_decode(cfg, params, dtype, tokens, index_of, starts, joins):
-    """Teacher-forced decode of ``tokens`` (lanes, T) through the continuous
-    engine's slot step (`make_slot_step`), replayed as a CUDA graph
-    (`GraphedStep`) over caches of ``dtype`` with ``dtype`` compute: step
-    ``t`` feeds column ``t`` at index ``index_of(t)`` with ``starts[t]`` and
-    ``joins[t]``. Returns the logits (lanes, T, V) in float32 and the
-    step's replay count."""
+def decode_runtime(dtype, cf=None):
+    """A Runtime computing in ``dtype``, its MoE capacity factor ``cf``
+    (None: the default)."""
+    import dataclasses
+
+    from repro_torch.models.model import Runtime
+
+    rt = Runtime(compute_dtype=dtype)
+    return rt if cf is None else dataclasses.replace(
+        rt, moe_capacity_factor=cf)
+
+
+def slot_decode(cfg, params, dtype, x, index_of, starts, joins, cf=None,
+                graphed=True, max_len=None):
+    """Teacher-forced decode of ``x`` (lanes, T) token ids, or (lanes, T,
+    d_model) frame embeddings, through the continuous engine's slot step
+    (`make_slot_step`), replayed as a CUDA graph (`GraphedStep`; every call
+    eager with ``graphed`` false) over caches of ``max_len`` (default T)
+    rows in ``dtype`` with ``dtype`` compute (MoE capacity factor ``cf``,
+    default the Runtime's): step ``t`` feeds column ``t`` at index
+    ``index_of(t)`` with ``starts[t]`` and ``joins[t]``. Embeddings reach
+    the graph through a device buffer it reads, filled before each call.
+    Returns the logits (lanes, T, V) in float32 and the step's replay
+    count."""
+    import numpy as np
     import torch
 
-    from repro_torch.models.model import Runtime, init_decode_caches
+    from repro_torch.models.model import init_decode_caches
     from repro_torch.serve.continuous import make_slot_step
     from repro_torch.serve.engine import GraphedStep
 
-    lanes, T = tokens.shape
+    lanes, T = x.shape[:2]
     dev = next(iter(params.values())).device
-    caches = init_decode_caches(cfg, lanes, T, dtype=dtype, device=dev)
-    slot = make_slot_step(cfg, Runtime(compute_dtype=dtype))
+    caches = init_decode_caches(cfg, lanes, max_len or T, dtype=dtype,
+                                device=dev)
+    slot = make_slot_step(cfg, decode_runtime(dtype, cf))
+    if cfg.input_mode == "tokens":
+        def inputs(tok):
+            return {"tokens": tok}
+    else:
+        emb = torch.zeros((lanes, 1, cfg.d_model), device=dev)
+
+        def inputs(tok):
+            return {"embeddings": emb}
     step = GraphedStep(lambda p, c, tok, index, start, join:
-                       slot(p, {"tokens": tok}, c, index, start, join))
+                       slot(p, inputs(tok), c, index, start, join))
+    if not graphed:
+        step.WARMUP = 1 << 30
     out = []
     for t in range(T):
-        logits, caches = step(params, caches, tokens[:, t:t + 1],
-                              index_of(t), starts[t], joins[t])
+        if cfg.input_mode == "tokens":
+            tok = x[:, t:t + 1]
+        else:
+            emb.copy_(x[:, t:t + 1])
+            tok = np.zeros((lanes, 1), np.int32)
+        logits, caches = step(params, caches, tok, index_of(t), starts[t],
+                              joins[t])
         out.append(logits[:, -1].float().clone())
     return torch.stack(out, 1), step.replays
 
 
-def decode_vs_forward(cfg, params):
-    """Part a's decode checks at full width. Lane 0 decodes one sequence of
-    DECODE_T tokens; lane 1 decodes DECODE_JOIN tokens of another, then a
-    new request joins it at position DECODE_JOIN (``start`` = DECODE_JOIN,
-    the previous occupant's rows left in its cache). The truth is the full
-    forward: of lane 0's whole sequence, of lane 1's first occupant, and of
-    the joined request alone (the model has no positional embedding, so a
-    joined request's logits are a fresh sequence's).
+@contextlib.contextmanager
+def patched(obj, name, fn):
+    """``obj.name`` replaced by ``fn`` inside the block (a planted fault)."""
+    old = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
 
-    float32, TF32 off: within SERVE_TOL_F32 of the forward; two planted
-    faults must fail that check (the index one step behind, so each step
-    writes over the previous token's row; the ``start`` mask dropped, so
-    the joined request sees the previous occupant). bf16: with
-    ``e_fwd = max|forward_bf16 - forward_f32|`` and ``e_dec =
-    max|decode_bf16 - forward_f32|``, ``e_dec <= 2 e_fwd``, and the greedy
-    token equal to the float32 forward's wherever its top-2 margin exceeds
-    ``2 e_fwd``. The elementwise 2e-2 reading against the bf16 forward is
-    printed beside, not enforced."""
+
+def decode_check(cfg, params, T=None, J=None, cf=None, plants=None,
+                 bf16=True, seed=5):
+    """Decode against the full forward. Lane 0 decodes one sequence of T
+    positions (tokens, or frame embeddings for an embeddings model); lane 1
+    decodes J of another, then a new request joins it at position J
+    (``start`` = J, the previous occupant's rows and state left in its
+    caches, the join mask set once). The truth is the full forward: of lane
+    0's whole sequence, of lane 1's first occupant, and of the joined
+    request alone from position 0 (RoPE and the window see only distances,
+    an SSM lane is reset at the join; MoE at capacity factor ``cf``).
+
+    float32, TF32 off: within SERVE_TOL_F32 of the forward; each of
+    ``plants`` (name -> {"index_of", "starts", "cfg", "patch": a context
+    manager}) must fail that check. bf16 (``bf16``): with ``e_fwd =
+    max|forward_bf16 - forward_f32|`` and ``e_dec = max|decode_bf16 -
+    forward_f32|``, ``e_dec <= 2 e_fwd``, and the greedy token equal to the
+    float32 forward's wherever its top-2 margin exceeds ``2 e_fwd``. With
+    MoE, a position where the bf16 forward or the bf16 decode routes a
+    token to other experts than the float32 forward does (a near-tie in
+    the gates, flipped by rounding: a discrete choice, as the greedy token
+    is) is left out of both errors; the flips and both unrestricted errors
+    are printed. The elementwise 2e-2 reading against the bf16 forward is
+    printed beside, not enforced. Returns the line and (the inputs, the
+    float32 decode and the plants' decodes) for `join_check`."""
     import numpy as np
     import torch
 
-    from repro_torch.models.model import Runtime, forward
+    from repro_torch.models.model import forward
 
-    T, J, V = DECODE_T, DECODE_JOIN, cfg.vocab_size
-    tokens = np.random.default_rng(5).integers(
-        0, V, (2, T)).astype(np.int32)
+    T, J, V = T or DECODE_T, J or DECODE_JOIN, cfg.vocab_size
+    dev = next(iter(params.values())).device
+    rng = np.random.default_rng(seed)
+    key = "tokens" if cfg.input_mode == "tokens" else "embeddings"
+    if key == "tokens":
+        x = rng.integers(0, V, (2, T)).astype(np.int32)
+    else:
+        x = torch.as_tensor((0.1 * rng.standard_normal(
+            (2, T, cfg.d_model))).astype(np.float32), device=dev)
     starts = [np.array([0, 0 if t < J else J], np.int32) for t in range(T)]
     joins = [np.array([False, t == J]) for t in range(T)]
 
     def truth(dtype):
-        rt = Runtime(compute_dtype=dtype)
-        tok = torch.as_tensor(tokens, device=next(iter(params.values()))
-                              .device)
+        rt = decode_runtime(dtype, cf)
+        xs = torch.as_tensor(x, device=dev)
         with torch.no_grad():
-            whole, _ = forward(params, cfg, rt, {"tokens": tok})
-            joined, _ = forward(params, cfg, rt, {"tokens": tok[1:, J:]})
+            whole, _ = forward(params, cfg, rt, {key: xs})
+            joined, _ = forward(params, cfg, rt, {key: xs[1:, J:]})
         return torch.stack([whole[0], torch.cat([whole[1, :J], joined[0]])]
                            )[..., :V].float()
 
-    def decode(dtype, index_of=lambda t: t, starts=starts):
-        got, replays = slot_decode(cfg, params, dtype, tokens, index_of,
-                                   starts, joins)
+    def decode(dtype, index_of=lambda t: t, starts=starts, cfg=cfg,
+               patch=None):
+        with patch or contextlib.nullcontext():
+            got, replays = slot_decode(cfg, params, dtype, x, index_of,
+                                       starts, joins, cf=cf)
         return got[..., :V], replays
 
     def within(got, want, tol):
@@ -2043,31 +2139,110 @@ def decode_vs_forward(cfg, params):
 
     want32 = truth(torch.float32)
     got32, replays = decode(torch.float32)
-    plants = {
-        "index_one_behind": decode(torch.float32,
-                                   index_of=lambda t: max(t - 1, 0))[0],
-        "start_mask_dropped": decode(
-            torch.float32, starts=[np.zeros(2, np.int32)] * T)[0]}
+    planted = {name: decode(torch.float32, **spec)[0]
+               for name, spec in (plants or {}).items()}
     f32 = {"max_abs_err": float((got32 - want32).abs().max()),
            "within_tol": within(got32, want32, SERVE_TOL_F32),
            "tol": SERVE_TOL_F32, "graph_replays": replays,
            "plants": {name: {"max_abs_err": float((g - want32).abs().max()),
                              "within_tol": within(g, want32, SERVE_TOL_F32)}
-                      for name, g in plants.items()}}
-    fwd16 = truth(torch.bfloat16)
-    got16, _ = decode(torch.bfloat16)
-    e_fwd = float((fwd16 - want32).abs().max())
-    e_dec = float((got16 - want32).abs().max())
-    top2 = want32.topk(2, dim=-1).values
-    sure = (top2[..., 0] - top2[..., 1]) > 2 * e_fwd
-    greedy_diff = int(((got16.argmax(-1) != want32.argmax(-1)) & sure).sum())
-    bf16 = {"e_fwd": e_fwd, "e_dec": e_dec, "within_2_e_fwd":
-            e_dec <= 2 * e_fwd, "positions_with_margin": int(sure.sum()),
+                      for name, g in planted.items()}}
+    line = {"lanes": 2, "positions": T, "join_at": J, "float32": f32}
+    if bf16:
+        fwd16 = truth(torch.bfloat16)
+        got16, _ = decode(torch.bfloat16)
+        # MoE: positions where a bf16 run routes a token to other experts
+        # than the float32 forward (a near-tie in the gates flipped by
+        # rounding) are left out of both errors and counted
+        same = torch.ones(want32.shape[:2], dtype=torch.bool,
+                          device=want32.device)
+        flips = None
+        if cfg.n_experts:
+            r32, r16 = (forward_routes(truth, dt, J)
+                        for dt in (torch.float32, torch.bfloat16))
+            d16 = decode_routes(cfg, params, x, starts, joins, cf)
+            flips = {"forward": (r16 != r32).any(-1).any(0),
+                     "decode": (d16 != r32).any(-1).any(0)}
+            same = ~flips["forward"] & ~flips["decode"]
+        e_fwd = float((fwd16 - want32).abs()[same].max())
+        e_dec = float((got16 - want32).abs()[same].max())
+        top2 = want32.topk(2, dim=-1).values
+        sure = ((top2[..., 0] - top2[..., 1]) > 2 * e_fwd) & same
+        greedy_diff = int(((got16.argmax(-1) != want32.argmax(-1))
+                           & sure).sum())
+        line["bf16"] = {
+            "e_fwd": e_fwd, "e_dec": e_dec,
+            "within_2_e_fwd": e_dec <= 2 * e_fwd,
+            "positions_with_margin": int(sure.sum()),
             "greedy_mismatches": greedy_diff,
             "max_abs_logit": float(want32.abs().max()),
             "elementwise_2e-2_vs_bf16_forward": within(got16, fwd16, 2e-2)}
-    return {"lanes": 2, "positions": T, "join_at": J, "float32": f32,
-            "bf16": bf16}
+        if flips is not None:
+            line["bf16"].update(
+                e_fwd_all=float((fwd16 - want32).abs().max()),
+                e_dec_all=float((got16 - want32).abs().max()),
+                routing_flips={k: int(v.sum()) for k, v in flips.items()},
+                positions_compared=int(same.sum()))
+    return line, {"x": x, "got32": got32, "planted": planted}
+
+
+def recorded_routes(fn):
+    """Run ``fn`` eagerly with `moe.route` recording each call's experts,
+    sorted per token. Returns the list of (tokens, k) tensors."""
+    from repro_torch.models import moe as tmoe
+
+    route, recs = tmoe.route, []
+
+    def kept(*a):
+        out = route(*a)
+        recs.append(out[2].sort(dim=-1).values)
+        return out
+
+    with patched(tmoe, "route", kept):
+        fn()
+    return recs
+
+
+def forward_routes(truth, dtype, J):
+    """The experts of every MoE layer for `decode_check`'s truth in
+    ``dtype``, laid out as its lanes: (layers, 2, T, k)."""
+    import torch
+
+    recs = recorded_routes(lambda: truth(dtype))
+    n = len(recs) // 2  # the whole batch's calls, then the joined request's
+    out = []
+    for whole, joined in zip(recs[:n], recs[n:]):
+        whole = whole.view(2, -1, whole.shape[-1])
+        out.append(torch.stack([whole[0], torch.cat([whole[1, :J],
+                                                     joined])]))
+    return torch.stack(out)
+
+
+def decode_routes(cfg, params, x, starts, joins, cf):
+    """The experts of every MoE layer in an eager bf16 decode of
+    `decode_check`'s lanes: (layers, 2, T, k)."""
+    import torch
+
+    T = x.shape[1]
+    recs = recorded_routes(lambda: slot_decode(
+        cfg, params, torch.bfloat16, x, lambda t: t, starts, joins, cf=cf,
+        graphed=False))
+    steps = torch.stack(recs).view(T, len(recs) // T, 2, -1)
+    return steps.permute(1, 2, 0, 3)
+
+
+def decode_vs_forward(cfg, params):
+    """Part a's decode checks at full width (`decode_check`): GPT-2 has no
+    positional embedding, so its planted faults are the index one step
+    behind (each step writes over the previous token's row) and the
+    ``start`` mask dropped (the joined request sees the previous
+    occupant)."""
+    import numpy as np
+
+    plants = {"index_one_behind": {"index_of": lambda t: max(t - 1, 0)},
+              "start_mask_dropped": {"starts": [np.zeros(2, np.int32)]
+                                     * DECODE_T}}
+    return decode_check(cfg, params, plants=plants)[0]
 
 
 def join_oracle(cfg, rt, params):
@@ -2109,6 +2284,39 @@ def join_oracle(cfg, rt, params):
             "compared": compared, "mismatched": mismatched}
 
 
+def check_graph(where, g):
+    """`graphed_vs_eager`'s bars: the graph captured, >= 48 steps with
+    joins and an epoch reset, every step's logits and every token bitwise
+    equal, no non-finite step."""
+    if not (g["captured"] and g["steps"] >= 48 and g["joins"]
+            and g["epoch_resets"]):
+        raise SmokeFailure(f"{where}: the graph run is too short or lacks "
+                           f"joins or an epoch reset: {g}")
+    if g["bitwise_equal_steps"] != g["steps"] or not g["tokens_equal"] \
+            or g["nonfinite_steps"]:
+        raise SmokeFailure(f"{where}: the graphed slot step differs from "
+                           f"the eager one: {g}")
+
+
+def check_decode_line(where, d, gate_f32=True):
+    """`decode_check`'s bars: float32 within SERVE_TOL_F32 (when gated) on
+    a graphed step, every planted fault outside it; bf16 (when run)
+    ``e_dec <= 2 e_fwd`` with no greedy mismatch where the margin
+    allows."""
+    f32 = d["float32"]
+    if not f32["graph_replays"] or (gate_f32 and not f32["within_tol"]):
+        raise SmokeFailure(f"{where}: float32 decode against the forward: "
+                           f"{f32}")
+    passed = [k for k, v in f32["plants"].items() if v["within_tol"]]
+    if passed:
+        raise SmokeFailure(f"{where}: planted decode faults {passed} pass "
+                           f"the float32 check: {f32['plants']}")
+    b16 = d.get("bf16")
+    if b16 and (not b16["within_2_e_fwd"] or b16["greedy_mismatches"]):
+        raise SmokeFailure(f"{where}: bf16 decode against the float32 "
+                           f"forward: {b16}")
+
+
 def serve_part_a():
     """Part a: the slot step's CUDA graph, decode against the forward (float32
     and bf16), and mid-flight joins against the static-batch oracle, at full
@@ -2129,26 +2337,9 @@ def serve_part_a():
             "join_oracle": join_oracle(cfg, rt, params),
             "seconds": time.perf_counter() - t0}
     emit(line)
-    g, d, j = line["graph"], line["decode_vs_forward"], line["join_oracle"]
-    if not (g["captured"] and g["steps"] >= 48 and g["joins"]
-            and g["epoch_resets"]):
-        raise SmokeFailure(f"serve_path a: the graph run is too short or "
-                           f"lacks joins or an epoch reset: {g}")
-    if g["bitwise_equal_steps"] != g["steps"] or not g["tokens_equal"] \
-            or g["nonfinite_steps"]:
-        raise SmokeFailure(f"serve_path a: the graphed slot step differs "
-                           f"from the eager one: {g}")
-    f32, b16 = d["float32"], d["bf16"]
-    if not f32["within_tol"] or not f32["graph_replays"]:
-        raise SmokeFailure(f"serve_path a: float32 decode against the "
-                           f"forward: {f32}")
-    passed = [k for k, v in f32["plants"].items() if v["within_tol"]]
-    if passed:
-        raise SmokeFailure(f"serve_path a: planted decode faults {passed} "
-                           f"pass the float32 check: {f32['plants']}")
-    if not b16["within_2_e_fwd"] or b16["greedy_mismatches"]:
-        raise SmokeFailure(f"serve_path a: bf16 decode against the float32 "
-                           f"forward: {b16}")
+    check_graph("serve_path a", line["graph"])
+    check_decode_line("serve_path a", line["decode_vs_forward"])
+    j = line["join_oracle"]
     if j["mismatched"] or not j["joined_mid_flight"]:
         raise SmokeFailure(f"serve_path a: join oracle: {j}")
     del params
@@ -2331,6 +2522,528 @@ def serve_phase(reset_counts, read_counts, read_all_variants):
     for part in (b, d):
         tally(out, part["launches"], part["variants"])
     return out
+
+
+# the serve_arch phase: decode and serving of the other families, a process
+# per model (`isolated`)
+SERVE_ARCH_LLAMA, SERVE_ARCH_MAMBA = "llama3.2-1b", "mamba2-2.7b"
+SERVE_ARCH_MOE, SERVE_ARCH_MOE_LAYERS = "deepseek-v2-236b", 2
+SERVE_ARCH_RUNS = {SERVE_ARCH_LLAMA: (("off", 64), ("stream", 64)),
+                   SERVE_ARCH_MAMBA: (("stream", 32),)}
+SERVE_ARCH_WRAP_T = 48  # h2o-danube's decode positions: past its 32-slot ring
+# part a's join position: the joined request's forward (T - 16 positions)
+# divides into the reduced SSD's 16-token chunks
+SERVE_ARCH_JOIN = 16
+
+
+def rope_plant(shift_query=False, zero_key=False):
+    """A planted RoPE fault: `attention.apply_rope` wrapped so that every
+    decode step's query rotation (the first call of each pair: q, then k;
+    MLA's q_rope, then k_rope) happens at ``index + 1``, or its key
+    rotation returns zeros (MLA's score without the k_rope term)."""
+    from repro_torch.models import attention as attn
+
+    rope, calls = attn.apply_rope, [0]
+
+    def planted(x, pos, theta):
+        query = calls[0] % 2 == 0
+        calls[0] += 1
+        if query and shift_query:
+            return rope(x, pos + 1, theta)
+        out = rope(x, pos, theta)
+        return out * 0 if not query and zero_key else out
+
+    return patched(attn, "apply_rope", planted)
+
+
+def family_plants(cfg):
+    """The planted faults of ``cfg``'s decode mechanisms, each of which
+    must fail the float32 decode check: the query rotated at ``index + 1``
+    (RoPE: Llama), a ring of ``slots - 1`` (the rolling cache, whose
+    oldest live row is then overwritten: H2O-Danube), no join-time reset
+    of the SSM state (Mamba2), MLA's score without its k_rope term
+    (DeepSeek-V2), MoE decode without the dense residual (Arctic)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.serve import continuous
+
+    name = cfg.name
+    if name == "llama3.2-1b":
+        return {"rope_query_at_index_plus_1": {
+            "patch": rope_plant(shift_query=True)}}
+    if name == "h2o-danube-3-4b":
+        return {"ring_of_slots_minus_1": {"patch": patched(
+            attn, "ring_slot",
+            lambda cfg, idx, slots: torch.remainder(idx, slots - 1))}}
+    if name == "mamba2-2.7b":
+        return {"no_join_reset": {"patch": patched(
+            continuous, "_reset_joined", lambda caches, mask: caches)}}
+    if name == "deepseek-v2-236b":
+        return {"mla_score_without_k_rope": {
+            "patch": rope_plant(zero_key=True)}}
+    if name == "arctic-480b":
+        return {"moe_without_dense_residual": {
+            "cfg": dataclasses.replace(cfg, dense_residual=False)}}
+    return {}
+
+
+def join_check(cfg, params, line, extras, cf=None):
+    """The join oracle, float32, on `decode_check`'s inputs. An SSM or
+    hybrid lane (recurrent state reset at the join): the joined request's
+    logits equal, bit for bit, those of the same two lanes decoded from
+    position J in fresh caches (the joined lane's other history gone), and
+    a planted run without the reset does not. Otherwise (RoPE): within
+    SERVE_TOL_F32 of the request decoded alone (a static batch of one)
+    from position J, the greedy tokens equal."""
+    import numpy as np
+    import torch
+
+    x, T, J, V = extras["x"], line["positions"], line["join_at"], \
+        cfg.vocab_size
+    joined = extras["got32"][1, J:]
+    n = T - J
+    if cfg.family in ("ssm", "hybrid"):
+        fresh, _ = slot_decode(cfg, params, torch.float32, x[:, J:],
+                               lambda t: J + t,
+                               [np.array([0, J], np.int32)] * n,
+                               [np.zeros(2, bool)] * n, cf=cf, max_len=T)
+        fresh = fresh[1, :, :V]
+        out = {"oracle": "fresh lane, bit for bit",
+               "bitwise_equal": bool(torch.equal(joined, fresh)),
+               "max_abs_diff": float((joined - fresh).abs().max())}
+        out["plants_bitwise_equal"] = {
+            k: bool(torch.equal(g[1, J:], fresh))
+            for k, g in extras["planted"].items()}
+        out["ok"] = out["bitwise_equal"] and not any(
+            out["plants_bitwise_equal"].values())
+        return out
+    alone, _ = slot_decode(cfg, params, torch.float32, x[1:, J:],
+                           lambda t: J + t, [np.array([J], np.int32)] * n,
+                           [np.zeros(1, bool)] * n, cf=cf, max_len=T)
+    alone = alone[0, :, :V]
+    err = float((joined - alone).abs().max())
+    ok = bool(((joined - alone).abs()
+               <= SERVE_TOL_F32 + SERVE_TOL_F32 * alone.abs()).all())
+    mism = int((joined.argmax(-1) != alone.argmax(-1)).sum())
+    return {"oracle": "static batch at the same positions",
+            "max_abs_err": err, "within_tol": ok,
+            "greedy_mismatches": mism, "ok": ok and not mism}
+
+
+def static_graph_check(cfg, rt, params):
+    """The fixed-batch engine (the only one an embeddings model has) with
+    its step graphed and eager: 2 lanes, a 4-token prompt, 48 generated
+    positions; every step's logits bitwise equal (the engine feeds zero
+    embeddings, as the reference's does, so they carry little; the slot
+    step's graph on real embeddings is `emb_graph_check`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 4)).astype(np.int32)
+    runs = []
+    for graphed in (True, False):
+        eng = ServeEngine(cfg=cfg, rt=rt, params=params, batch_size=2,
+                          max_len=64)
+        if not graphed:
+            eng._graphed.WARMUP = 1 << 30
+        logits = []
+        eng.generate(prompts, 48, step_hook=lambda t, l, logits=logits:
+                     logits.append(l[:, -1].float().clone()))
+        runs.append((eng._graphed, torch.stack(logits)))
+    (g, lg), (_, le) = runs
+    return {"steps": int(lg.shape[0]), "captured": g.graph is not None,
+            "replays": g.replays,
+            "bitwise_equal_steps": int((lg == le).all(dim=(1, 2)).sum()),
+            "max_abs_logit": float(lg.abs().max())}
+
+
+def emb_graph_check(cfg, params):
+    """The slot step on real frame embeddings (a device buffer the graph
+    reads), graphed against eager in bf16 over 48 steps: lane 1 joins at
+    position 8, and at step 40 the index rewinds to 0 (an epoch reset)
+    with both lanes joining. Every step's logits bitwise equal."""
+    import numpy as np
+    import torch
+
+    T, J, R = 48, 8, 40
+    x = torch.as_tensor((0.1 * np.random.default_rng(1).standard_normal(
+        (2, T, cfg.d_model))).astype(np.float32), device="cuda")
+    starts = [np.array([0, 0 if t < J else J] if t < R else [0, 0],
+                       np.int32) for t in range(T)]
+    joins = [np.array([t == R, t in (J, R)]) for t in range(T)]
+    index_of = lambda t: t if t < R else t - R  # noqa: E731
+    lg, replays = slot_decode(cfg, params, torch.bfloat16, x, index_of,
+                              starts, joins, max_len=R)
+    le, _ = slot_decode(cfg, params, torch.bfloat16, x, index_of, starts,
+                        joins, graphed=False, max_len=R)
+    return {"steps": T, "replays": replays, "joins": 1, "epoch_resets": 1,
+            "bitwise_equal_steps": int((lg == le).all(dim=(0, 2)).sum())}
+
+
+def serve_arch_reduced(reset_counts, read_counts, read_all_variants):
+    """``--serve-arch-reduced`` (a process of its own): every registered
+    decoder but GPT-2 at its reduced size. Per model: the graphed slot step
+    against eager in bf16 (`graphed_vs_eager`: >= 48 steps, joins, an
+    epoch reset; the embeddings model through the fixed-batch engine and
+    `emb_graph_check`); float32 decode against the float32 forward within
+    SERVE_TOL_F32 (`decode_check`; H2O-Danube over SERVE_ARCH_WRAP_T
+    positions, past its ring's wrap; lane 1 joined at SERVE_ARCH_JOIN; MoE
+    at a capacity factor of E / k, where no pair drops) with the model's
+    planted faults (`family_plants`) failing it; the join oracle
+    (`join_check`)."""
+    import gc as _gc
+
+    import torch
+
+    from repro_torch.config import get_arch, list_archs, reduced
+    from repro_torch.models.model import Runtime, init_params
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch in list_archs():
+        cfg = reduced(get_arch(arch))
+        if arch == "gpt2" or not cfg.has_decode:
+            continue
+        t_arch = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")
+        rt = Runtime(compute_dtype=torch.bfloat16)
+        cf = cfg.n_experts / cfg.moe_top_k if cfg.n_experts else None
+        res = {}
+        if cfg.input_mode == "tokens":
+            res["graph"] = graphed_vs_eager(cfg, rt, params)
+        else:
+            res["graph"] = static_graph_check(cfg, rt, params)
+            res["emb_graph"] = emb_graph_check(cfg, params)
+        T = SERVE_ARCH_WRAP_T if cfg.sliding_window and not cfg.ssm_state \
+            else DECODE_T
+        res["decode"], extras = decode_check(
+            cfg, params, T=T, J=SERVE_ARCH_JOIN, cf=cf,
+            plants=family_plants(cfg), bf16=False)
+        res["join"] = join_check(cfg, params, res["decode"], extras, cf=cf)
+        res["seconds"] = time.perf_counter() - t_arch
+        out[arch] = res
+        del params, extras
+        _gc.collect()
+        torch.cuda.empty_cache()
+    return {"archs": out, "seconds": time.perf_counter() - t0}
+
+
+def check_serve_arch_reduced(out):
+    """Part a's gates, model by model (`check_graph`, `check_decode_line`;
+    the embeddings model's two graph checks; the join oracle), and one
+    plant per mechanism."""
+    for arch, res in out["archs"].items():
+        where = f"serve_arch_path a {arch}"
+        g = res["graph"]
+        if "emb_graph" in res:
+            e = res["emb_graph"]
+            if not (g["captured"] and g["steps"] >= 48
+                    and g["bitwise_equal_steps"] == g["steps"]
+                    and e["replays"]
+                    and e["bitwise_equal_steps"] == e["steps"]):
+                raise SmokeFailure(f"{where}: the graphed step differs from "
+                                   f"eager or the run is short: {g} {e}")
+        else:
+            check_graph(where, g)
+        check_decode_line(where, res["decode"])
+        if not res["join"]["ok"]:
+            raise SmokeFailure(f"{where}: join oracle: {res['join']}")
+    planted = {k for res in out["archs"].values()
+               for k in res["decode"]["float32"]["plants"]}
+    if len(planted) != 5:
+        raise SmokeFailure(f"serve_arch_path a: plants {sorted(planted)}, "
+                           "not one per mechanism")
+    if out["archs"]["h2o-danube-3-4b"]["decode"]["positions"] < 48:
+        raise SmokeFailure("serve_arch_path a: h2o-danube short of a wrap")
+
+
+def serve_arch_serve(serve, reset_counts, read_counts, read_all_variants,
+                     arch, mode, requests):
+    """`repro_torch.launch.serve` in-process at full width (bf16, 4 slots,
+    the weights drawn on the card): ``requests`` requests in ``mode``,
+    the SLO verdict reported (SERVE_SLO was set for GPT-2's step; no gate
+    on it). The run's numbers, launches and variants."""
+    import torch
+
+    t0 = time.perf_counter()
+    args = serve.parser().parse_args(
+        ["--arch", arch, "--device", "cuda", "--init-on-device",
+         "--num-requests", str(requests), "--slots", "4",
+         "--monitor-spec", json.dumps({"mode": mode, "slo": SERVE_SLO})])
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    out = serve.serve(args)
+    launches, plain = read_counts()
+    res = {**out["stats"], "mode": mode,
+           "graphed": out["engine"]._step_fn.graph is not None,
+           "launches": launches, "plain_calls": plain,
+           "variants": read_all_variants(), "lost_batches": 0}
+    report = out["report"]
+    if report is not None:
+        res["slo_breach_incidents"] = sum(i.kind == "slo_breach"
+                                          for i in report.incidents)
+        res["incidents"] = len(report.incidents)
+        res["diagnoses"] = [d.fault_kind for d in report.diagnoses]
+        res["serve_stats"] = out["session"].serve_stats()
+        if mode == "stream":
+            res["lost_batches"] = out["session"].detector.monitor.stats()[
+                "aggregator"]["lost_batches"]
+    res["seconds"] = time.perf_counter() - t0
+    del out, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_serve_arch_run(where, res, requests):
+    """Every request served, no non-finite step, the slot step graphed;
+    in a monitored mode gmm_update launched, specialised only, no plain
+    call, no lost batch."""
+    if res["requests"] != requests or res["nonfinite_steps"] \
+            or not res["graphed"]:
+        raise SmokeFailure(f"serve_arch_path {where}: {res['requests']} of "
+                           f"{requests} requests, {res['nonfinite_steps']} "
+                           f"non-finite steps, graphed {res['graphed']}")
+    if res["mode"] == "off":
+        return
+    if not res["launches"]["gmm_update"] or any(
+            res["plain_calls"].values()) or any(
+            v["general"] for v in res["variants"].values()):
+        raise SmokeFailure(f"serve_arch_path {where}: launches "
+                           f"{res['launches']}, plain {res['plain_calls']},"
+                           f" variants {res['variants']}")
+    if res["lost_batches"]:
+        raise SmokeFailure(f"serve_arch_path {where}: {res['lost_batches']} "
+                           "lost batches")
+
+
+def slot_step_ms(cfg, params, slots=4, max_len=512, reps=20):
+    """The continuous engine's slot step in bf16 as `launch.serve` builds
+    it (``slots`` lanes, ``max_len`` cache rows), captured as a CUDA graph:
+    its device ms a replay, CUDA events over ``reps`` replays with nothing
+    between them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import Runtime, init_decode_caches
+    from repro_torch.serve.continuous import make_slot_step
+    from repro_torch.serve.engine import GraphedStep
+
+    caches = init_decode_caches(cfg, slots, max_len, device="cuda")
+    slot = make_slot_step(cfg, Runtime(compute_dtype=torch.bfloat16))
+    step = GraphedStep(lambda p, c, tok, index, start, join:
+                       slot(p, {"tokens": tok}, c, index, start, join))
+    tok, start = np.zeros((slots, 1), np.int32), np.zeros(slots, np.int32)
+    join = np.zeros(slots, bool)
+    for i in range(step.WARMUP + 1):  # the eager calls, then the capture
+        step(params, caches, tok, i, start, join)
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(reps):
+        step.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return begin.elapsed_time(end) / reps
+
+
+def serve_arch_full(arch, reset_counts, read_counts, read_all_variants,
+                    gate_f32):
+    """A full-width decoder on the card (bf16 serving, the weights drawn on
+    the card): the graphed slot step against eager (`graphed_vs_eager`),
+    decode against the forward in float32 (within SERVE_TOL_F32 when
+    ``gate_f32``, else reported) and bf16 (`decode_check`), then
+    `repro_torch.launch.serve` in each of SERVE_ARCH_RUNS[arch]. The
+    engine step's p50/p90 ms stands beside the slot step graph's device ms
+    (`slot_step_ms`) and the time to read the weights once at
+    HBM_BYTES_PER_S (float32 masters, which the step casts, and their
+    bf16 size). ``part_s``: the seconds of each part before serving."""
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Runtime, init_params
+
+    t0 = time.perf_counter()
+    cfg = get_arch(arch)
+    parts = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        got = fn(*a)
+        parts[name] = time.perf_counter() - t
+        return got
+
+    with runtime_leaks() as leaks:
+        params = timed("init", lambda: init_params(
+            cfg, seed=0, device="cuda", generator_device="cuda"))
+        n = sum(p.numel() for p in params.values())
+        out = {"arch": arch, "params": n,
+               "weights_read_ms": {"float32": 1e3 * 4 * n / HBM_BYTES_PER_S,
+                                   "bf16": 1e3 * 2 * n / HBM_BYTES_PER_S},
+               "graph": timed("graph", graphed_vs_eager, cfg, Runtime(
+                   compute_dtype=torch.bfloat16), params),
+               "part_s": parts}
+        out["decode"], _ = timed("decode", decode_check, cfg, params)
+        out["decode"]["float32"]["gated"] = gate_f32
+        out["slot_step_graph_ms"] = timed("slot_step", slot_step_ms, cfg,
+                                          params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["runs"] = {mode: serve_arch_serve(
+            serve, reset_counts, read_counts, read_all_variants, arch, mode,
+            requests) for mode, requests in SERVE_ARCH_RUNS[arch]}
+    out["runtime_rows_in_zone"] = leaks["in_zone"]
+    out["runtime_rows_on_worker"] = leaks["on_worker"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def serve_arch_llama(reset_counts, read_counts, read_all_variants):
+    """``--serve-arch-llama``: Llama 3.2 1B uncut (`serve_arch_full`, the
+    float32 decode gated)."""
+    return serve_arch_full(SERVE_ARCH_LLAMA, reset_counts, read_counts,
+                           read_all_variants, gate_f32=True)
+
+
+def serve_arch_mamba(reset_counts, read_counts, read_all_variants):
+    """``--serve-arch-mamba``: Mamba2 2.7B uncut (`serve_arch_full`). Its
+    float32 decode error is reported, not gated: over 64 layers the
+    chunked SSD forward and the recurrence round differently, so the 1e-4
+    bar holds at reduced size (part a) only."""
+    return serve_arch_full(SERVE_ARCH_MAMBA, reset_counts, read_counts,
+                           read_all_variants, gate_f32=False)
+
+
+def serve_arch_moe(reset_counts, read_counts, read_all_variants):
+    """``--serve-arch-moe``: DeepSeek-V2 at its published widths cut to
+    SERVE_ARCH_MOE_LAYERS layers (the dense first layer, one MoE layer of
+    160 experts with MLA; the weights drawn on the card). The graphed slot
+    step against eager (bf16, default capacity); decode against the
+    forward in float32 (within SERVE_TOL_F32) and bf16 at a capacity factor
+    of E / k, where no pair can drop; the pairs dropped counted on eager
+    runs at that capacity (0 on both sides) and at the default one."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.model import Runtime, forward, init_params
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH_MOE),
+                              n_layers=SERVE_ARCH_MOE_LAYERS)
+    cf = cfg.n_experts / cfg.moe_top_k
+    params = init_params(cfg, seed=0, device="cuda", generator_device="cuda")
+    n = sum(p.numel() for p in params.values())
+    out = {"arch": SERVE_ARCH_MOE, "params": n,
+           "reduced": {"n_layers": [get_arch(SERVE_ARCH_MOE).n_layers,
+                                    SERVE_ARCH_MOE_LAYERS]},
+           "no_drop_capacity_factor": cf,
+           "graph": graphed_vs_eager(cfg, Runtime(
+               compute_dtype=torch.bfloat16), params)}
+    out["decode"], extras = decode_check(cfg, params, cf=cf)
+
+    def drops(capacity_factor):
+        """Pairs dropped by the forward (T = 2 x DECODE_T tokens a layer)
+        and by decode (T = 2 a step), float32, eager."""
+        counted = {"forward": 0, "decode": 0}
+        where = ["forward"]
+        route = tmoe.route
+        rt = decode_runtime(torch.float32, capacity_factor)
+
+        def kept(p, prefix, c, xf):
+            got = route(p, prefix, c, xf)
+            C = tmoe._capacity(xf.shape[0], c.moe_top_k, c.n_experts,
+                               capacity_factor)
+            counted[where[0]] += int(tmoe.dropped(got[2], c.n_experts, C))
+            return got
+
+        x = extras["x"]
+        with patched(tmoe, "route", kept), torch.no_grad():
+            forward(params, cfg, rt, {"tokens": torch.as_tensor(
+                x, device="cuda")})
+            where[0] = "decode"
+            zeros = [np.zeros(2, np.int32)] * DECODE_T
+            slot_decode(cfg, params, torch.float32, x, lambda t: t, zeros,
+                        [np.zeros(2, bool)] * DECODE_T, cf=capacity_factor,
+                        graphed=False)
+        return counted
+
+    out["dropped_no_drop_capacity"] = drops(cf)
+    out["dropped_default_capacity"] = drops(Runtime().moe_capacity_factor)
+    out["pairs"] = {"forward": 2 * DECODE_T * cfg.moe_top_k,
+                    "decode": 2 * DECODE_T * cfg.moe_top_k}
+    out["seconds"] = time.perf_counter() - t0
+    del params, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_arch_phase():
+    """Phase ``serve_arch_path``: decode and serving of the other families
+    on the card, a process per model (`isolated`): (a) every reduced
+    decoder (``--serve-arch-reduced``), (b) Llama 3.2 1B uncut
+    (``--serve-arch-llama``), (c) Mamba2 2.7B uncut
+    (``--serve-arch-mamba``), (d) a two-layer DeepSeek-V2
+    (``--serve-arch-moe``). Returns the line; raises on a failed gate."""
+    t_phase = time.perf_counter()
+    line = {"phase": "serve_arch_path",
+            "reduced_models": isolated("--serve-arch-reduced",
+                                       "serve_arch_path reduced"),
+            "llama": isolated("--serve-arch-llama", "serve_arch_path llama"),
+            "mamba": isolated("--serve-arch-mamba", "serve_arch_path mamba"),
+            "moe": isolated("--serve-arch-moe", "serve_arch_path moe")}
+    line["reduced"] = {SERVE_ARCH_MOE: line["moe"]["reduced"]}
+    runs = [r for w in ("llama", "mamba") for r in line[w]["runs"].values()]
+    names = runs[0]["launches"]
+    line["launches"] = {k: sum(r["launches"][k] for r in runs
+                               if r["mode"] != "off") for k in names}
+    line["variants"] = {k: {v: sum(r["variants"][k][v] for r in runs
+                                   if r["mode"] != "off")
+                            for v in ("specialised", "general")}
+                        for k in names}
+    line["seconds"] = time.perf_counter() - t_phase
+    try:
+        check_serve_arch(line)
+    finally:
+        emit(line)
+    return line
+
+
+def check_serve_arch(line):
+    """Parts a-d's gates (`check_serve_arch_reduced`, `check_graph`,
+    `check_decode_line`, `check_serve_arch_run`)."""
+    check_serve_arch_reduced(line["reduced_models"])
+    for where in ("llama", "mamba"):
+        res = line[where]
+        check_graph(f"serve_arch_path {where}", res["graph"])
+        check_decode_line(f"serve_arch_path {where}", res["decode"],
+                          res["decode"]["float32"]["gated"])
+        for mode, run in res["runs"].items():
+            requests = dict(SERVE_ARCH_RUNS[res["arch"]])[mode]
+            check_serve_arch_run(f"{where} {mode}", run, requests)
+        if res["runtime_rows_in_zone"] or res["runtime_rows_on_worker"]:
+            raise SmokeFailure(f"serve_arch_path {where}: runtime-probe rows "
+                               "in a detection zone or on the worker")
+    mo = line["moe"]
+    check_graph("serve_arch_path moe", mo["graph"])
+    check_decode_line("serve_arch_path moe", mo["decode"])
+    if any(mo["dropped_no_drop_capacity"].values()):
+        raise SmokeFailure(f"serve_arch_path moe: pairs dropped at the "
+                           f"no-drop capacity: "
+                           f"{mo['dropped_no_drop_capacity']}")
 
 
 # the checkpoint phase: three runs of the launcher's stream session at full
@@ -2716,12 +3429,13 @@ ARCH_CASES = (("adamw", 1), ("adafactor", 1), ("adamw", 2))
 ARCH_REDUCED_STEPS = 4  # 2 eager warm-up calls, the capture, a replay
 ARCH_LLAMA = "llama3.2-1b"
 ARCH_LLAMA_RUNS = (("off", 30), ("batch", 200))
-# 100 steps: four stream flushes, the smoke's time kept in hand
-ARCH_MAMBA, ARCH_MAMBA_STEPS = "mamba2-2.7b", 100
+# 75 steps: three stream flushes (100, four, until the smoke outgrew 900 s
+# on a slower host)
+ARCH_MAMBA, ARCH_MAMBA_STEPS = "mamba2-2.7b", 75
 ARCH_MOE, ARCH_MOE_LAYERS = "deepseek-v2-236b", 2
 # graphed steps; the eager ones they are held to: the two warm-up calls and
 # the first replay of the graph
-ARCH_MOE_STEPS, ARCH_MOE_EAGER = 20, 3
+ARCH_MOE_STEPS, ARCH_MOE_EAGER = 10, 3
 # a 5.36B model whose every update is clipped to an RMS of one learning
 # rate: 1e-3 moved each weight by 3-7% of its scale a step, and the loss
 # jumped before it fell (12.0 -> 20.6 -> 5.4 over 20 steps)
@@ -3163,7 +3877,11 @@ CHILDREN = {"--eval-pass-a": eval_pass_a, "--eval-pass-b": eval_pass_b,
             "--serve-path": serve_phase, "--ckpt-path": ckpt_phase,
             "--ckpt-run": ckpt_run, "--obs-path": obs_phase,
             "--arch-reduced": arch_reduced, "--arch-llama": arch_llama,
-            "--arch-mamba": arch_mamba, "--arch-moe": arch_moe}
+            "--arch-mamba": arch_mamba, "--arch-moe": arch_moe,
+            "--serve-arch-reduced": serve_arch_reduced,
+            "--serve-arch-llama": serve_arch_llama,
+            "--serve-arch-mamba": serve_arch_mamba,
+            "--serve-arch-moe": serve_arch_moe}
 
 
 def build_phase(build, kmod, card):
@@ -3389,7 +4107,10 @@ def main() -> int:
     # 12. the reference's other families and training modes, a process each
     ar = arch_phase()
 
-    # 13. times at each path's largest shape and at scale
+    # 13. decode and serving of the other families, a process each
+    sa = serve_arch_phase()
+
+    # 14. times at each path's largest shape and at scale
     t_phase = time.perf_counter()
     N, D, K = shape
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
@@ -3437,7 +4158,8 @@ def main() -> int:
                               "ckpt_path": ck["launches"].get(name, 0),
                               "obs_path": ob["launches"][name],
                               "serve_path": sv["launches"][name],
-                              "arch_path": ar["launches"][name]},
+                              "arch_path": ar["launches"][name],
+                              "serve_arch_path": sa["launches"][name]},
          "kernels_per_call": at_path[name]["nodes"]["kernels"],
          "memsets_per_call": at_path[name]["nodes"]["memsets"],
          "variants_by_path": {"main_path": variants[name],
@@ -3447,7 +4169,8 @@ def main() -> int:
                               "ckpt_path": ck["variants"].get(name),
                               "obs_path": ob["variants"][name],
                               "serve_path": sv["variants"][name],
-                              "arch_path": ar["variants"][name]}}
+                              "arch_path": ar["variants"][name],
+                              "serve_arch_path": sa["variants"][name]}}
         for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")],
         "smoke_seconds": time.perf_counter() - t_smoke})
     print(card, flush=True)

@@ -6,10 +6,10 @@ of `repro/launch/serve.py`).
         --num-requests 64 \
         --monitor-spec '{"mode": "batch", "slo": {"ttft_s": 0.5}}'
 
-Runs on ``cuda`` unless ``--device cpu`` is given: GPT-2 124M at full width
-in bf16, its slot step replayed as a CUDA graph; ``--reduced`` is the
-CPU-sized model in float32. Without a card and without ``--device cpu`` it
-raises.
+Runs on ``cuda`` unless ``--device cpu`` is given: the model at full
+width in bf16 (GPT-2 124M by default), its slot step replayed as a CUDA
+graph; ``--reduced`` is the CPU-sized model in float32. Without a card and
+without ``--device cpu`` it raises.
 
 The launcher runs the slot-based `ContinuousBatchingEngine`: requests arrive
 from a deterministic multi-tenant `LoadGenerator` (``--qps``, ``--tenants``,
@@ -20,11 +20,16 @@ request plane. Ctrl-C flushes: the session finalises and the report stays
 valid for whatever was served. It prints tok/s, req/s, the queue wait, TTFT
 and TPOT (p50, p95), and the engine step's wall ms (p50, p90).
 
-``--arch`` must be one whose decode step is ported: a causal dense GQA
-model without RoPE or a sliding window (GPT-2). Any other registered
-architecture exits with an error naming what its decode lacks (MLA, SSD or
-hybrid decode, the sliding-window rolling cache, RoPE decode) and the
-slice it waits for.
+``--arch`` serves every registered decoder: dense GQA with RoPE (Llama,
+SmolLM, OLMo), the sliding window's rolling cache (H2O-Danube), MoE
+(Arctic) and MLA with MoE (DeepSeek-V2), SSD (Mamba2) and the SSD /
+shared-attention hybrid (Zamba2). A model that takes embeddings
+(Pixtral's backbone) serves through ``--static-batch`` only, fed zero
+embeddings as the reference's engine feeds them; the continuous engine
+refuses it. An encoder (HuBERT) has no decode step: the launcher says so
+and exits 0, as the reference's does. ``--init-on-device`` draws the
+weights on the card (seconds, not minutes, for a billion-parameter
+model).
 
 ``--static-batch`` keeps the legacy fixed-batch `ServeEngine` path (one
 ``generate`` call, no request accounting) for A/B comparison.
@@ -44,8 +49,7 @@ import torch
 
 from repro_torch.config import get_arch, reduced
 from repro_torch.device import resolve_device
-from repro_torch.models.model import (Runtime, check_decode_supported,
-                                      init_params)
+from repro_torch.models.model import Runtime, init_params
 from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
                                RequestQueue, ServeEngine)
 from repro_torch.session import MonitorSpec, Session, SinkSpec
@@ -75,6 +79,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
                     help="where the model serves and the GMMs run")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--init-on-device", action="store_true",
+                    help="draw the weights with a generator on --device "
+                         "(other numbers than the CPU draw)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--max-len", type=int, default=512,
                     help="KV-cache length (one shared decode index)")
@@ -128,7 +135,9 @@ def serve(args) -> Dict[str, Any]:
         cfg = reduced(cfg)
     rt = Runtime(compute_dtype=torch.float32 if args.reduced
                  else torch.bfloat16)
-    params = init_params(cfg, seed=args.seed, device=dev)
+    params = init_params(cfg, seed=args.seed, device=dev,
+                         generator_device=dev if args.init_on_device
+                         else "cpu")
 
     spec = MonitorSpec.from_args(args, legacy_defaults=LEGACY_SPEC_DEFAULTS)
     if spec.mode != "off":
@@ -308,9 +317,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
     try:
-        check_decode_supported(get_arch(args.arch))
-    except (NotImplementedError, KeyError) as e:
+        cfg = get_arch(args.arch)
+    except KeyError as e:
         ap.error(str(e))
+    if not cfg.has_decode:
+        print(f"{cfg.name} is encoder-only: no decode step")
+        return 0
+    if cfg.input_mode != "tokens" and not args.static_batch:
+        ap.error(f"{cfg.name} takes embeddings: continuous batching "
+                 "requires token inputs (serve it with --static-batch)")
     out = serve(args)
     if out["report"] is not None:
         print(out["report"].render())

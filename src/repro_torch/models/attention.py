@@ -1,6 +1,8 @@
 """Attention — GQA (with RoPE, sliding windows and bidirectional masks) and
-MLA full-sequence forwards, ``init_kv_cache`` and ``gqa_decode`` /
-``attention_decode`` of `repro/models/attention.py`.
+MLA full-sequence forwards, and the decode of both against their caches
+(``init_kv_cache``, ``gqa_decode`` with RoPE and the sliding window's
+rolling cache, MLA's weight-absorbed ``mla_decode``, ``attention_decode``)
+of `repro/models/attention.py`.
 
 The reference computes the full-sequence forward blockwise with an online
 softmax and a custom VJP in plain jnp, and its decode step in plain jnp too;
@@ -9,9 +11,11 @@ and autograd. At the sequence lengths of the monitored workload (hundreds of
 tokens) the (S, S) score matrix is small. Scores, softmax and the value
 product accumulate in float32 in both, as the reference's do.
 
-Decode writes the step's K/V rows into the cache in place (``index_copy_``
-at a device-side ``index``), so one decode step can be captured in a CUDA
-graph over static cache buffers and replayed at every position.
+Decode writes the step's cache rows in place (``index_copy_`` at a
+device-side ``index``, or its ring slot), and computes RoPE's angles and
+the masks from that device ``index`` too, so one decode step can be
+captured in a CUDA graph over static cache buffers and replayed at every
+position.
 """
 from __future__ import annotations
 
@@ -174,22 +178,43 @@ Cache = Dict[str, torch.Tensor]
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Optional[torch.device] = None) -> Cache:
-    """One attention layer's cache: K and V rows (B, max_len, KV, hd) and the
-    absolute position each slot holds (-1 = never written)."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """One attention layer's cache (`repro/models/attention.py:294-307`).
+    GQA: K and V rows (B, slots, KV, hd) and the absolute position each
+    slot holds (-1 = never written); under a sliding window of W the
+    cache is a ring of ``slots = min(W, max_len)``, else ``max_len``
+    rows. MLA: the latent ``c_kv`` (B, max_len, kv_lora_rank) and the
+    shared rope key ``k_rope`` (B, max_len, qk_rope_dim)."""
+    if cfg.attn_kind == "mla":
+        return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                      dtype=dtype, device=device)}
+    W = cfg.sliding_window or 0
+    slots = min(W, max_len) if W else max_len
+    shape = (batch, slots, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((max_len,), -1, dtype=torch.int32,
+            "pos": torch.full((slots,), -1, dtype=torch.int32,
                               device=device)}
 
 
 def _index_tensor(index: Union[int, torch.Tensor],
                   device: torch.device) -> torch.Tensor:
     """The decode position as a (1,) int64 device tensor (a graphed step
-    passes its static index buffer; eager callers may pass an int)."""
+    passes its static index buffer; eager callers may pass an int). Every
+    position-dependent quantity of a decode step (RoPE's angles, the ring
+    slot, the masks) is computed from it on the device, so a captured
+    step replays at any position."""
     if isinstance(index, torch.Tensor):
         return index.reshape(1).to(torch.int64)
     return torch.tensor([int(index)], dtype=torch.int64, device=device)
+
+
+def ring_slot(cfg: ModelConfig, idx: torch.Tensor, slots: int
+              ) -> torch.Tensor:
+    """The cache row position ``idx`` is written to: ``idx % slots`` in a
+    sliding window's ring, ``idx`` itself otherwise."""
+    return torch.remainder(idx, slots) if cfg.sliding_window else idx
 
 
 def gqa_decode(params: Params, prefix: str, cfg: ModelConfig,
@@ -197,8 +222,12 @@ def gqa_decode(params: Params, prefix: str, cfg: ModelConfig,
                index: Union[int, torch.Tensor],
                start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, 1, d_model); ``index``: the absolute position. Writes the
-    step's K/V into ``cache`` in place and returns (B, 1, d_model).
+    step's K/V into ``cache`` in place and returns (B, 1, d_model)
+    (`repro/models/attention.py:310-351`).
 
+    With RoPE, q and k are rotated at ``index`` before k is written (keys
+    are cached rotated). Under a sliding window the row goes to ring slot
+    ``index % slots`` and a slot is attended to while ``index - pos < W``.
     ``start``: optional (B,) per-sequence first valid absolute position.
     Continuous-batching serving reuses cache rows across requests; a
     sequence that joined the batch at position ``start[b]`` must not attend
@@ -209,19 +238,26 @@ def gqa_decode(params: Params, prefix: str, cfg: ModelConfig,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
     idx = _index_tensor(index, x.device)
-    q = (x @ params[f"{prefix}.q.kernel"].to(x.dtype)).view(B, KV, G, hd)
+    q = (x @ params[f"{prefix}.q.kernel"].to(x.dtype)).view(B, 1, H, hd)
     k = (x @ params[f"{prefix}.k.kernel"].to(x.dtype)).view(B, 1, KV, hd)
     v = (x @ params[f"{prefix}.v.kernel"].to(x.dtype)).view(B, 1, KV, hd)
+    if cfg.use_rope:  # rotate at write time
+        q = apply_rope(q, idx, cfg.rope_theta)
+        k = apply_rope(k, idx, cfg.rope_theta)
     k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
-    k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
-    pos.index_copy_(0, idx, idx.to(pos.dtype))
     S = k_cache.shape[1]
+    slot = ring_slot(cfg, idx, S)
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    pos.index_copy_(0, slot, idx.to(pos.dtype))
     kt = k_cache.permute(0, 2, 3, 1).reshape(B * KV, hd, S)
     s = (matmul_f32(q.reshape(B * KV, G, hd), kt,
                     torch.promote_types(q.dtype, k_cache.dtype))
          / math.sqrt(hd)).view(B, KV, G, S)
-    valid = (pos >= 0) & (pos <= idx.to(pos.dtype))  # (S,)
+    at = idx.to(pos.dtype)
+    valid = (pos >= 0) & (pos <= at)  # (S,)
+    if cfg.sliding_window:
+        valid = valid & (at - pos < cfg.sliding_window)
     if start is None:
         s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
     else:
@@ -234,12 +270,67 @@ def gqa_decode(params: Params, prefix: str, cfg: ModelConfig,
     return o @ params[f"{prefix}.out.kernel"].to(x.dtype)
 
 
+def mla_decode(params: Params, prefix: str, cfg: ModelConfig,
+               x: torch.Tensor, cache: Cache,
+               index: Union[int, torch.Tensor],
+               start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weight-absorbed MLA decode (DeepSeek-V2's absorption,
+    `repro/models/attention.py:354-395`): scores and values against the
+    latent cache, no per-head K or V materialised. The query's nope part is
+    taken into the latent space through W_uk (``q_lat``, in x's dtype);
+    the score is ``q_lat . c_kv + q_rope . k_rope``, two products summed in
+    float32; the latent output ``p . c_kv`` (float32) goes back out through
+    W_uv in x's dtype. ``start`` as in `gqa_decode`."""
+    B = x.shape[0]
+    H, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                        cfg.v_head_dim, cfg.kv_lora_rank)
+    idx = _index_tensor(index, x.device)
+
+    def w(name):
+        return params[f"{prefix}.{name}"].to(x.dtype)
+
+    cq = _rms(x @ w("q_down.kernel"), params[f"{prefix}.q_norm.scale"])
+    q = (cq @ w("q_up.kernel")).view(B, 1, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], idx, cfg.rope_theta)
+    ckv = x @ w("kv_down.kernel")
+    c_kv = _rms(ckv[..., :r], params[f"{prefix}.kv_norm.scale"])  # (B,1,r)
+    k_rope = apply_rope(ckv[..., None, r:], idx,
+                        cfg.rope_theta)[:, :, 0]  # (B,1,dr)
+    ckv_cache, kr_cache = cache["c_kv"], cache["k_rope"]
+    ckv_cache.index_copy_(1, idx, c_kv.to(ckv_cache.dtype))
+    kr_cache.index_copy_(1, idx, k_rope.to(kr_cache.dtype))
+
+    w_kv = params[f"{prefix}.kv_up.kernel"].view(r, H, dn + dv)
+    w_uk = w_kv[..., :dn].permute(1, 2, 0).to(x.dtype)  # (H, dn, r)
+    w_uv = w_kv[..., dn:].permute(1, 0, 2).to(x.dtype)  # (H, r, dv)
+    # absorb W_uk into the query: q_lat (B, H, r)
+    q_lat = torch.bmm(q_nope.reshape(B, H, dn).transpose(0, 1),
+                      w_uk).transpose(0, 1)
+    S = ckv_cache.shape[1]
+    s = (matmul_f32(q_lat, ckv_cache.transpose(1, 2),
+                    torch.promote_types(q_lat.dtype, ckv_cache.dtype))
+         + matmul_f32(q_rope.reshape(B, H, dr), kr_cache.transpose(1, 2),
+                      torch.promote_types(q_rope.dtype, kr_cache.dtype)))
+    s = s / math.sqrt(dn + dr)  # (B, H, S)
+    rows = torch.arange(S, device=x.device)
+    valid = rows <= idx
+    if start is None:
+        s = s.masked_fill(~valid[None, None, :], NEG_INF)
+    else:
+        valid = valid[None, :] & (rows[None, :] >= start.to(rows.dtype)[:, None])
+        s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o_lat = matmul_f32(p, ckv_cache, ckv_cache.dtype)  # (B, H, r)
+    o = torch.bmm(o_lat.to(x.dtype).transpose(0, 1), w_uv)  # (H, B, dv)
+    return o.transpose(0, 1).reshape(B, 1, H * dv) @ w("out.kernel")
+
+
 def attention_decode(params: Params, prefix: str, cfg: ModelConfig,
                      x: torch.Tensor, cache: Cache,
                      index: Union[int, torch.Tensor],
                      start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The decode attention of ``cfg.attn_kind`` (GQA without RoPE or a
-    sliding window only in this port: `model.check_decode_supported`)."""
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.attn_kind} decode is not ported yet")
+    """The decode attention of ``cfg.attn_kind``."""
+    if cfg.attn_kind == "mla":
+        return mla_decode(params, prefix, cfg, x, cache, index, start=start)
     return gqa_decode(params, prefix, cfg, x, cache, index, start=start)

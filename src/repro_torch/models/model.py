@@ -1,7 +1,7 @@
 """Model composition: init, forward, loss for every family of
 `repro/models/model.py` (dense, moe with dense residual and leading dense
 layers, ssm, hybrid, encoder, vlm backbone; `:94-150, 175-316`), and
-decode for the dense GPT-2 path.
+decode for every family but the encoder (`:328-459`).
 
 Parameters are one flat dict of float32 leaf tensors keyed by
 `repro_torch.config.param_shapes` names. Kernels keep the reference's
@@ -15,9 +15,9 @@ place of tokens. Weights are cast to the compute dtype where they are
 used, so gradients reach the float32 masters.
 
 Decode (`init_decode_caches`, `decode_step`) is one token a step against
-per-layer KV caches that the step updates in place, with the reference's
-per-slot ``start`` masking for continuous batching; it covers GQA without
-RoPE or a sliding window (`check_decode_supported`).
+per-layer caches that the step updates in place (KV rows, a sliding
+window's ring, MLA's latent rows, an SSM's conv window and state), with
+the reference's per-slot ``start`` masking for continuous batching.
 """
 from __future__ import annotations
 
@@ -49,26 +49,11 @@ class Runtime:
 
 
 def check_decode_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration whose decode step is not ported: the
-    port decodes a causal dense GQA model without RoPE or a sliding window
-    (GPT-2's path)."""
+    """Raise for a configuration without a decode step: an encoder (nor
+    has the reference one)."""
     if not cfg.has_decode:
         raise NotImplementedError(f"{cfg.name} is an encoder: it has no "
                                   "decode step (nor has the reference)")
-    unsupported = {
-        "MLA decode": cfg.attn_kind == "mla",
-        "SSD decode": cfg.family in ("ssm", "hybrid"),
-        "the sliding-window rolling cache": bool(cfg.sliding_window),
-        "RoPE decode": cfg.use_rope,
-        "MoE decode": bool(cfg.n_experts),
-        "embeddings input": cfg.input_mode != "tokens",
-        "an untied head": not cfg.tie_embeddings,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet: it comes with "
-            "the decode slice of the port (decode of the new families)")
 
 
 # ---------------------------------------------------------------------------
@@ -192,28 +177,68 @@ def forward(params: Params, cfg: ModelConfig, rt: Runtime,
 # Decode
 # ---------------------------------------------------------------------------
 
-Caches = Dict[str, List[attn.Cache]]
+# {"layers": [...], ...}: one cache dict per layer in a list per group of
+# layers (the reference stacks them on leading axes)
+Caches = Dict[str, List[Dict[str, torch.Tensor]]]
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        dtype: torch.dtype = torch.bfloat16,
                        device: DeviceLike = None) -> Caches:
-    """One KV cache per layer (the reference stacks them on a layer axis)."""
+    """The model's decode caches (`repro/models/model.py:328-357`), KV
+    caches in ``dtype``, SSM caches in float32. Dense and MoE: ``layers``
+    (the layers after the leading dense ones) and ``head_layers`` (those);
+    SSM: ``layers``; hybrid: ``layers`` (every grouped mixer, layer by
+    layer), ``tail`` (the mixers after the last group) and ``shared`` (the
+    shared attention's KV cache, one per group)."""
     check_decode_supported(cfg)
     dev = resolve_device(device)
-    return {"layers": [attn.init_kv_cache(cfg, batch, max_len, dtype, dev)
-                       for _ in range(cfg.n_layers)]}
+
+    def kv(n):
+        return [attn.init_kv_cache(cfg, batch, max_len, dtype, dev)
+                for _ in range(n)]
+
+    def ssm(n):
+        return [ssm_mod.init_ssm_cache(cfg, batch, device=dev)
+                for _ in range(n)]
+
+    if cfg.family in ("ssm", "hybrid"):
+        if not cfg.attn_every:
+            return {"layers": ssm(cfg.n_layers)}
+        n_groups, g, n_tail = hybrid_structure(cfg)
+        caches = {"layers": ssm(n_groups * g), "shared": kv(n_groups)}
+        if n_tail:
+            caches["tail"] = ssm(n_tail)
+        return caches
+    fd = cfg.first_dense_layers if cfg.n_experts else 0
+    caches = {"layers": kv(cfg.n_layers - fd)}
+    if fd:
+        caches["head_layers"] = kv(fd)
+    return caches
 
 
 def _tf_block_decode(params: Params, prefix: str, cfg: ModelConfig,
-                     x: torch.Tensor, cache: attn.Cache,
+                     rt: Runtime, x: torch.Tensor, cache: attn.Cache,
                      index: Union[int, torch.Tensor],
-                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     start: Optional[torch.Tensor] = None,
+                     is_moe: bool = False) -> torch.Tensor:
     h = apply_norm(params, f"{prefix}.norm1", cfg, x)
     x = x + attn.attention_decode(params, f"{prefix}.attn", cfg, h, cache,
                                   index, start=start)
     h = apply_norm(params, f"{prefix}.norm2", cfg, x)
-    return x + ffn_mod.ffn_forward(params, f"{prefix}.ffn", cfg, h)
+    if not is_moe:
+        return x + ffn_mod.ffn_forward(params, f"{prefix}.ffn", cfg, h)
+    y, _ = moe_mod.moe_forward(params, f"{prefix}.moe", cfg, rt, h)
+    if cfg.dense_residual:
+        y = y + ffn_mod.ffn_forward(params, f"{prefix}.ffn", cfg, h)
+    return x + y
+
+
+def _mamba_block_decode(params: Params, prefix: str, cfg: ModelConfig,
+                        x: torch.Tensor, cache: ssm_mod.SSMCache
+                        ) -> torch.Tensor:
+    h = apply_norm(params, f"{prefix}.norm1", cfg, x)
+    return x + ssm_mod.ssd_decode(params, f"{prefix}.mixer", cfg, h, cache)
 
 
 def decode_step(params: Params, cfg: ModelConfig, rt: Runtime,
@@ -221,20 +246,46 @@ def decode_step(params: Params, cfg: ModelConfig, rt: Runtime,
                 index: Union[int, torch.Tensor],
                 start: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Caches]:
-    """One token step. batch: {"tokens": (B, 1)}. Returns (logits
+    """One token step (`repro/models/model.py:383-459`). batch:
+    {"tokens": (B, 1)} or {"embeddings": (B, 1, d_model)}. Returns (logits
     (B, 1, V_padded), caches), the caches updated in place.
 
     ``start``: optional (B,) — each sequence's first valid absolute
     position. Continuous-batching serving passes it so a request that
     joined the running batch mid-flight never attends to cache rows written
     by the slot's previous occupant (see `attention.gqa_decode`)."""
-    table = params["embed.table"]
-    x = F.embedding(batch["tokens"].long(), table.to(rt.compute_dtype))
-    for i in range(cfg.n_layers):
-        x = _tf_block_decode(params, f"layers.{i}", cfg, x,
-                             caches["layers"][i], index, start=start)
-    x = apply_norm(params, "final_norm", cfg, x)
-    return x @ table.to(x.dtype).T, caches
+    x = _embed(params, cfg, rt, batch)
+    if cfg.family in ("ssm", "hybrid"):
+        layers = caches["layers"]
+        if cfg.attn_every:
+            n_groups, g, n_tail = hybrid_structure(cfg)
+            for gi in range(n_groups):
+                for j in range(g):
+                    i = gi * g + j
+                    x = _mamba_block_decode(params, f"layers.{i}", cfg, x,
+                                            layers[i])
+                h = apply_norm(params, "shared.norm1", cfg, x)
+                x = x + attn.attention_decode(
+                    params, "shared.attn", cfg, h, caches["shared"][gi],
+                    index, start=start)
+                h = apply_norm(params, "shared.norm2", cfg, x)
+                x = x + ffn_mod.ffn_forward(params, "shared.ffn", cfg, h)
+            for t in range(n_tail):
+                x = _mamba_block_decode(params, f"layers.{n_groups * g + t}",
+                                        cfg, x, caches["tail"][t])
+        else:
+            for i in range(cfg.n_layers):
+                x = _mamba_block_decode(params, f"layers.{i}", cfg, x,
+                                        layers[i])
+    else:
+        fd = cfg.first_dense_layers if cfg.n_experts else 0
+        for i in range(cfg.n_layers):
+            cache = (caches["head_layers"][i] if i < fd
+                     else caches["layers"][i - fd])
+            x = _tf_block_decode(params, f"layers.{i}", cfg, rt, x, cache,
+                                 index, start=start,
+                                 is_moe=bool(cfg.n_experts) and i >= fd)
+    return _head(params, cfg, x), caches
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,14 @@ in order where the reference runs ``associative_scan``: the same terms,
 summed in another order (float32 agreement to ~1e-6 relative). The
 reference's ``preferred_element_type=float32`` products on bf16 operands
 are float32 products of the upcast operands here (a bf16 x bf16 product is
-exact in float32). Decode (``ssd_decode``) comes with a later slice.
+exact in float32). Decode (``init_ssm_cache``, ``ssd_decode``, `:161-200`)
+is the O(1) per-token recurrence over a per-lane conv window and state,
+updated in place.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -135,4 +137,69 @@ def ssd_forward(params: Params, prefix: str, cfg: ModelConfig,
     y = (y + y_inter).to(x.dtype)
     y = y + p("D").to(x.dtype)[:, None] * xs
     y = rms_norm_gated(p("norm.scale"), y.reshape(B, S, di), z)
+    return y @ p("out_proj.kernel").to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+SSMCache = Dict[str, torch.Tensor]
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int,
+                   dtype: torch.dtype = torch.float32,
+                   device: Optional[torch.device] = None) -> SSMCache:
+    """One mixer's decode cache: the conv window's last ``ssm_conv - 1``
+    inputs (B, K-1, conv_dim) and the state (B, nh, hd, st), both float32
+    as the reference's."""
+    di, ng, st = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    conv_dim = di + 2 * ng * st
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, cfg.ssm_nheads, cfg.ssm_headdim, st),
+                                 dtype=torch.float32, device=device)}
+
+
+def ssd_decode(params: Params, prefix: str, cfg: ModelConfig,
+               x: torch.Tensor, cache: SSMCache) -> torch.Tensor:
+    """x: (B, 1, d_model) -> (B, 1, d_model): one token through the mixer,
+    ``cache`` updated in place. The conv window is the cached inputs (cast
+    to x's dtype) and this token's, contracted with the kernel (exact
+    products summed in float32, rounded once to x's dtype, as the
+    reference's ``einsum``); the window moves on by one. The state decays
+    by ``exp(dt A)`` and takes ``dt x B`` in float32; the output reads it
+    through C, adds the D skip, then the gated RMSNorm."""
+    B = x.shape[0]
+    di, ng, st, nh, hd = (cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state,
+                          cfg.ssm_nheads, cfg.ssm_headdim)
+    f32 = torch.float32
+
+    def p(name):
+        return params[f"{prefix}.{name}"]
+
+    proj = x @ p("in_proj.kernel").to(x.dtype)
+    z, xBC, dt = _split_proj(cfg, proj)  # (B, 1, .)
+    conv = cache["conv"]
+    conv_in = torch.cat([conv.to(x.dtype), xBC], dim=1)  # (B, K, conv_dim)
+    kernel = p("conv.kernel").to(x.dtype)
+    xBC_t = (conv_in.to(f32) * kernel.to(f32)).sum(dim=1).to(x.dtype)
+    xBC_t = F.silu(xBC_t)  # (B, conv_dim)
+    conv.copy_(conv_in[:, 1:])
+
+    xt = xBC_t[:, :di].reshape(B, nh, hd)
+    Bt = xBC_t[:, di:di + ng * st].reshape(B, ng, st)
+    Ct = xBC_t[:, di + ng * st:].reshape(B, ng, st)
+    A = -torch.exp(p("A_log").to(f32))
+    dtt = F.softplus(dt[:, 0].to(f32) + p("dt_bias"))  # (B, nh)
+    decay = torch.exp(dtt * A)
+    hpg = nh // ng
+    Bh = Bt.to(f32).repeat_interleave(hpg, dim=1)  # (B, nh, st)
+    Ch = Ct.to(f32).repeat_interleave(hpg, dim=1)
+    inject = (dtt[..., None] * xt.to(f32))[..., None] * Bh[:, :, None, :]
+    state = cache["state"]
+    state.mul_(decay[..., None, None]).add_(inject)  # (B, nh, hd, st)
+    y = torch.matmul(state, Ch[..., None])[..., 0].to(x.dtype)  # (B,nh,hd)
+    y = y + p("D").to(x.dtype)[:, None] * xt
+    y = rms_norm_gated(p("norm.scale"), y.reshape(B, 1, di), z)
     return y @ p("out_proj.kernel").to(x.dtype)

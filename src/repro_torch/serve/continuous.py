@@ -15,11 +15,13 @@ one step (`make_slot_step`):
   slot's previous occupant. `decode_step`'s ``start`` vector masks attention
   to positions ``>= start[slot]``, which on models without positional
   embeddings makes a joined generation bit-exact with a fresh static batch.
+  With RoPE a request that joins at ``start = s`` is rotated at absolute
+  positions s, s+1, ..., as in the reference: it equals a static batch
+  run at those positions, not one started at 0.
 * **join-time recurrent reset** — attention caches are position-addressed
   and maskable, but recurrent cache leaves (the reference's SSM ``state``/
   ``conv``) are not: `_reset_joined` zeroes exactly those for joining
-  lanes before the step runs. The dense GPT-2 caches of this port have
-  none.
+  lanes before the step runs (SSM and hybrid models).
 
 On a CUDA device the slot step is captured once in a CUDA graph over the
 engine's static caches and replayed every step (`engine.GraphedStep`):
@@ -64,15 +66,20 @@ class VirtualClock:
 
 def _reset_joined(caches, join_mask: torch.Tensor):
     """Zero per-lane recurrent state (``state``/``conv`` leaves, lane axis
-    first) for joining slots, in place. Attention k/v/pos leaves are
-    untouched: stale rows there are excluded by the per-slot ``start`` mask
-    instead."""
-    for layer in caches["layers"]:
-        for name in ("state", "conv"):
-            leaf = layer.get(name)
-            if leaf is not None:
+    first) for joining slots, in place, wherever they are in the cache
+    tree (an SSM's ``layers``, a hybrid's ``layers`` and ``tail``).
+    Attention k/v/pos (and MLA's latent) leaves are untouched: stale rows
+    there are excluded by the per-slot ``start`` mask instead."""
+    if isinstance(caches, dict):
+        for name, leaf in caches.items():
+            if name in ("state", "conv"):
                 keep = ~join_mask.reshape((-1,) + (1,) * (leaf.ndim - 1))
                 leaf.mul_(keep.to(leaf.dtype))
+            elif not isinstance(leaf, torch.Tensor):
+                _reset_joined(leaf, join_mask)
+    else:
+        for sub in caches:
+            _reset_joined(sub, join_mask)
     return caches
 
 

@@ -11,7 +11,7 @@ launches would be paid for on the host every token.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -40,6 +40,18 @@ def make_decode_step(cfg: ModelConfig, rt: Runtime) -> Callable:
             return decode_step(params, cfg, rt, batch, caches, index)
 
     return step
+
+
+def cache_leaves(tree) -> Iterator[torch.Tensor]:
+    """Every tensor of a cache tree (dicts and lists), in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from cache_leaves(tree[k])
+    else:
+        for v in tree:
+            yield from cache_leaves(v)
 
 
 class GraphedStep:
@@ -72,11 +84,12 @@ class GraphedStep:
     def __call__(self, params, caches, *inputs):
         self.calls += 1
         host = [torch.as_tensor(x) for x in inputs]
-        dev = caches["layers"][0]["k"].device
+        leaves = list(cache_leaves(caches))
+        dev = leaves[0].device
         if dev.type != "cuda" or self.calls <= self.WARMUP:
             return self.fn(params, caches, *[h.to(dev) for h in host])
         flat = torch.cat([h.reshape(-1).to(torch.int64) for h in host])
-        ptrs = [c["k"].data_ptr() for c in caches["layers"]]
+        ptrs = [t.data_ptr() for t in leaves]
         if self.graph is None:
             self._buf = torch.empty_like(flat, device=dev)
             self._buf.copy_(flat)
@@ -121,8 +134,18 @@ class ServeEngine:
         step = make_decode_step(self.cfg, self.rt)
         self._graphed = GraphedStep(
             lambda params, caches, tokens, index:
-            step(params, {"tokens": tokens}, caches, index))
+            step(params, self._inputs(tokens), caches, index))
         self.gen = torch.Generator().manual_seed(self.seed)
+
+    def _inputs(self, tokens: torch.Tensor):
+        """The step's model inputs: the tokens, or for a model that takes
+        embeddings, zero embeddings (B, 1, d_model) in the compute dtype,
+        as the reference's engine feeds."""
+        if self.cfg.input_mode == "tokens":
+            return {"tokens": tokens}
+        return {"embeddings": torch.zeros(
+            (tokens.shape[0], 1, self.cfg.d_model),
+            dtype=self.rt.compute_dtype, device=tokens.device)}
 
     def _step(self, params, batch, caches, index):
         """serve_step with the reference's signature (what a monitor

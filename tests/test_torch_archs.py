@@ -4,7 +4,7 @@ the reference's own initial weights carried across by `params_from_jax`:
 the forward's logits and aux loss, the loss, and the gradients against
 ``jax.grad``; MoE routing and capacity drops, SSD over several chunks,
 RoPE alone, the parameter count, weight decay on the reference's stacked
-leaves, and the launchers on every architecture. The optimizer steps are in
+leaves, and the launchers (training and serving) on every architecture. The optimizer steps are in
 tests/test_torch_archs_steps.py.
 
 Tolerances (float32 in both; matmuls and reductions summed in another
@@ -45,6 +45,7 @@ from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.serve import ContinuousBatchingEngine  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
 CPU = "cpu"
@@ -302,11 +303,46 @@ def test_launcher_trains_every_arch_with_adafactor_and_microbatches(
 
 
 @pytest.mark.parametrize("arch", ASSIGNED)
-def test_serve_refuses_the_unported_decodes_by_name(arch, capsys):
-    """Every assigned config's decode waits for a later slice: the serve
-    launcher exits 2 naming what is missing and that slice."""
-    with pytest.raises(SystemExit) as e:
-        launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert arch in err and ("decode slice" in err or "encoder" in err)
+def test_serve_launcher_serves_every_arch_on_the_cpu(arch, capsys,
+                                                     monkeypatch):
+    """``launch.serve --reduced --device cpu`` on every assigned config: a
+    token decoder serves a few requests through the continuous engine,
+    every step's logits finite; the embeddings model (Pixtral's backbone)
+    serves through ``--static-batch`` and the continuous engine refuses it
+    with the reference's message; the encoder has no decode step and exits
+    0 saying so, as the reference's launcher does."""
+    cfg = get_arch(arch)
+    if not cfg.has_decode:
+        assert launch_serve.main(["--arch", arch, "--reduced", "--device",
+                                  "cpu"]) == 0
+        assert "encoder-only" in capsys.readouterr().out
+        return
+    runs = []
+    serve = launch_serve.serve
+
+    def kept(args):
+        runs.append(serve(args))
+        return runs[-1]
+
+    monkeypatch.setattr(launch_serve, "serve", kept)
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--max-len", "64"]
+    if cfg.input_mode != "tokens":
+        with pytest.raises(SystemExit) as e:
+            launch_serve.main(argv)
+        assert e.value.code == 2
+        assert ("continuous batching requires token inputs"
+                in capsys.readouterr().err)
+        with pytest.raises(ValueError, match="requires token inputs"):
+            ContinuousBatchingEngine(reduced(cfg), tmodel.Runtime(
+                torch.float32), port_params(arch), slots=2, max_len=8)
+        assert launch_serve.main(argv + ["--static-batch", "--batch", "2",
+                                         "--tokens", "4",
+                                         "--prompt-len", "3"]) == 0
+        assert "generated (2, 7)" in capsys.readouterr().out
+        return
+    assert launch_serve.main(argv + ["--num-requests", "6", "--slots", "2",
+                                     "--prompt-len", "2,4",
+                                     "--max-new", "2,4"]) == 0
+    stats = runs[-1]["stats"]
+    assert stats["requests"] == 6 and stats["tokens"] > 0
+    assert stats["nonfinite_steps"] == 0

@@ -7,8 +7,9 @@ microbatches, a
 GMM fit and a streaming detector's warmup and tick on the card against the
 same on the CPU, the eval runner's graphed synthetic step against the eager
 one and one scenario-matrix cell on the card, the serve plane's graphed
-slot step against the eager one and its launcher, and attention's
-float32-result product on bf16 operands against the CPU's.
+slot step against the eager one (GPT-2 and every other token decoder, the
+device index read by RoPE and the ring slot) and its launcher, and
+attention's float32-result product on bf16 operands against the CPU's.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -733,6 +734,94 @@ def test_graphed_slot_step_matches_eager(cuda):
     assert sum(r.start_index > 0 for r in g.finished) >= 4
     assert torch.equal(lg, le)
     assert [r.tokens for r in g.finished] == [r.tokens for r in e.finished]
+
+
+DECODERS = [a for a in ASSIGNED if get_arch(a).has_decode
+            and get_arch(a).input_mode == "tokens"]
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_graphed_slot_step_of_every_family_matches_eager(cuda, arch):
+    """Each token decoder at reduced size (RoPE, the rolling window, MLA,
+    MoE, SSD, the hybrid): the continuous engine's slot step replayed as a
+    CUDA graph against eager, one request stream with mid-flight joins
+    (SSM state reset in the graph) and an epoch reset, every step's logits
+    bitwise equal."""
+    from repro_torch.serve import (ContinuousBatchingEngine, LoadGenerator,
+                                   RequestQueue, VirtualClock)
+
+    cfg = reduced(get_arch(arch))
+    rt = Runtime(compute_dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=cuda)
+    runs = []
+    for graphed in (True, False):
+        eng = ContinuousBatchingEngine(cfg, rt, params, slots=4, max_len=40,
+                                       seed=0, clock=VirtualClock(0.02))
+        step, logits = eng._step_fn, []
+        if not graphed:
+            step.WARMUP = 1 << 30
+
+        def kept(*a, step=step, logits=logits):
+            out = step(*a)
+            logits.append(out[0][:, -1].float().clone())
+            return out
+
+        eng._step_fn = kept
+        eng.run(LoadGenerator(rate=0.6, num_requests=16, seed=3,
+                              prompt_len=(3, 8), max_new=(4, 10),
+                              vocab_size=cfg.vocab_size),
+                queue=RequestQueue())
+        runs.append((eng, step, torch.stack(logits)))
+    (g, gstep, lg), (e, _, le) = runs
+    assert gstep.graph is not None and gstep.replays >= 40
+    assert g.scheduler.epoch_resets >= 1
+    assert sum(r.start_index > 0 for r in g.finished) >= 4
+    assert torch.isfinite(lg).all()
+    assert torch.equal(lg, le)
+
+
+def test_graph_replays_read_the_device_index(cuda):
+    """RoPE and the sliding window's ring slot come from the step's device
+    ``index``, not from a value frozen at capture. H2O-Danube (reduced:
+    RoPE, a 32-slot ring): a first token at index 40, then one captured
+    step replayed twice from that state, the second token at index 41 and
+    at 44. Each replay equals the eager step at its index bit for bit
+    (logits and the ring's positions), and the two differ as the eager
+    ones do (RoPE sees the distance between the tokens)."""
+    from repro_torch.models.model import init_decode_caches
+    from repro_torch.serve.continuous import make_slot_step
+    from repro_torch.serve.engine import GraphedStep, cache_leaves
+
+    cfg = reduced(get_arch("h2o-danube-3-4b"))
+    params = init_params(cfg, seed=0, device=cuda)
+    slot = make_slot_step(cfg, Runtime(compute_dtype=torch.float32))
+    zero, no = np.zeros(1, np.int32), np.zeros(1, bool)
+
+    def run(graphed):
+        caches = init_decode_caches(cfg, 1, 64, dtype=torch.float32,
+                                    device=cuda)
+        step = GraphedStep(lambda p, c, tok, index, start, join:
+                           slot(p, {"tokens": tok}, c, index, start, join))
+        step.WARMUP = 1 if graphed else 1 << 30
+        step(params, caches, np.array([[3]]), 40, zero, no)
+        first = [t.clone() for t in cache_leaves(caches)]
+        out = []
+        for at in (41, 44):
+            for t, saved in zip(cache_leaves(caches), first):
+                t.copy_(saved)
+            logits, caches = step(params, caches, np.array([[5]]), at, zero,
+                                  no)
+            out.append((logits.clone(), caches["layers"][0]["pos"].tolist()))
+        return out, step.replays
+
+    (near, far), replays = run(True)
+    (want_near, want_far), _ = run(False)
+    assert replays == 2
+    assert torch.equal(near[0], want_near[0]) and near[1] == want_near[1]
+    assert torch.equal(far[0], want_far[0]) and far[1] == want_far[1]
+    assert near[1][8:10] == [40, 41] and far[1][8] == 40 \
+        and far[1][12] == 44 and far[1][9] == -1
+    assert not torch.allclose(near[0], far[0])
 
 
 def test_serve_launcher_on_the_card(cuda):
