@@ -43,6 +43,11 @@ Phases, each printing one JSON line of its own:
    The loss must be finite, the STEP layer's hit rate > 0.5 and > 2x its
    false rate, the governor must act, the operator layer and the runtime
    probe must have rows, and the device probe must have lost no sample.
+   Then ``table1_path`` (`table1_phase`): paper Table I's six baselines
+   (`repro_torch.core.baselines`, NumPy/SciPy) and the GMM on the card
+   over the run's STEP-layer features, scored against its op_latency
+   windows; every detector must fit, every score be finite and the phase
+   take at most 20 s; F1 is printed, not gated.
 5. ``stream_path``: `repro_torch.quickstart.run_stream` on ``cuda`` — the
    same model trains 240 steps with a StreamMonitor attached (the
    latency_spike scenario: 3 op_latency bursts of 14 steps after a 96-step
@@ -117,7 +122,13 @@ Phases, each printing one JSON line of its own:
    both modes: FAR under `FAR_CEILING` and no diagnosis (the reference's
    own gate, `repro/launch/evaluate.py:140-152`). Listed under ``unmet``,
    not enforced: pass B's mean blamed-kind accuracy under the reference's
-   0.5.
+   0.5. Then ``nvml_path`` (`nvml_phase`, in a child, ``--nvml-path
+   OUT``): pass B's clean_control, degraded_device and memory_leak cells
+   in batch mode with the device probe reading the card through NVML in
+   its sampler process; gates: every DEVICE row from NVML, no failed
+   sample, NVML's power limit nvidia-smi's, readings a card can give, and
+   the faulted cells' injected memory visible in their fault windows'
+   rows; scores, the clean cell's FAR and diagnoses printed, not gated.
 10. ``ckpt_path``: checkpointing through `repro_torch.launch.train` at full
    width (GPT-2 124M, bf16, batch 8, sequence 128, the step graphed), the
    stream session with ``--inject-faults``, in a process of its own
@@ -240,7 +251,12 @@ Phases, each printing one JSON line of its own:
 
 Every path must launch only specialised kernels (the wrappers'
 ``VARIANTS``, set to 0 before each path and read after). Every phase line
-carries its wall ``seconds``; the ``kernels`` line the whole run's.
+carries its wall ``seconds``; the ``kernels`` line the whole run's. Every
+path line whose sessions detached a device probe carries ``device``
+(`device_summary`): the DEVICE source and sampler, NVML's UUIDs and power
+limits, each reading's min and max, the sampler process's sweep ms p50 and
+p99, the job-side drain's µs a step and the failed samples, which must be
+0.
 Then the ``kernels`` line (each kernel's launches on its path — the main
 path for the scoring kernels, the stream path for the EM kernels — its
 largest error against the plain version at that path's largest shape, its
@@ -297,8 +313,97 @@ class SmokeFailure(Exception):
     pass
 
 
+# the lines of a path that ran sessions: each reports the device probes
+# that detached since the previous one (`watch_device_probes`)
+PATH_PHASES = ("main_path", "stream_path", "session_path", "fleet_path",
+               "families_path", "eval_path", "ckpt_path", "obs_path",
+               "serve_path", "arch_path", "serve_arch_path", "nvml_path")
+DEVICE_RUNS = []  # each detached device probe's stats, until reported
+
+
 def emit(obj) -> None:
+    runs = None
+    if isinstance(obj, dict) and obj.get("phase") in PATH_PHASES \
+            and DEVICE_RUNS:
+        runs = DEVICE_RUNS[:]
+        DEVICE_RUNS.clear()
+        obj = {**obj, "device": device_summary(runs)}
     print(json.dumps(obj), flush=True)
+    if runs:
+        check_device(obj["phase"], obj["device"])
+
+
+def watch_device_probes() -> None:
+    """Keep every device probe's `stats()` (and its sweeps' ms) as it
+    detaches, for the next path line (`emit`)."""
+    from repro_torch.core.probes.device_probe import DeviceProbe
+
+    detach = DeviceProbe._detach
+
+    def kept(self):
+        detach(self)
+        DEVICE_RUNS.append({**self.stats(), "sweep_ms": list(self.sweep_ms),
+                            "drain_s": self.drain_s, "drains": self.drains})
+
+    DeviceProbe._detach = kept
+
+
+def adopt_device_runs(out_path) -> None:
+    """The device runs a child (`child_main`) had not reported."""
+    side = out_path + ".device.json"
+    if os.path.exists(side):
+        with open(side) as f:
+            DEVICE_RUNS.extend(json.load(f))
+        os.remove(side)
+
+
+def device_summary(runs) -> dict:
+    """The DEVICE layer's source over a path's sessions: NVML's UUIDs and
+    power limits, each reading's min and max, the job's own memory as the
+    GPU driver lists it, the sampler process's start and sweep ms, the job's
+    drain µs a step, failed samples."""
+    import numpy as np
+
+    sweeps = np.asarray([ms for r in runs for ms in r["sweep_ms"]])
+    keys = sorted({k for r in runs for k in r["reading_min_max"]})
+    proc = [r["process_memory"] for r in runs]
+    drains = sum(r["drains"] for r in runs)
+    return {
+        "sessions": len(runs),
+        "sources": sorted({r["source"] for r in runs}),
+        "samplers": sorted({r["sampler"] for r in runs}),
+        "uuids": sorted({u for r in runs for u in r["uuids"]}),
+        "power_limit_w": sorted({w for r in runs for w in r["power_limit_w"]}),
+        "reading_min_max": {
+            k: [min(r["reading_min_max"][k][0] for r in runs
+                    if k in r["reading_min_max"]),
+                max(r["reading_min_max"][k][1] for r in runs
+                    if k in r["reading_min_max"])] for k in keys},
+        "process_memory": {
+            "answered": any(p["answered"] for p in proc),
+            "pid_found": any(p["pid_found"] for p in proc),
+            "gb_max": max((p["gb"] for p in proc if p["gb"] is not None),
+                          default=None)},
+        "start_ms_max": max(r["start_ms"] for r in runs),
+        "sweeps": int(sweeps.size),
+        "sweep_ms_p50_p99": (np.percentile(sweeps, [50, 99]).tolist()
+                             if sweeps.size else None),
+        "drain_us_per_step": (1e6 * sum(r["drain_s"] for r in runs) / drains
+                              if drains else None),
+        "failed_samples": sum(r["failed_samples"] for r in runs),
+        "last_error": next((r["last_error"] for r in runs
+                            if r["last_error"]), None)}
+
+
+def check_device(where, dev) -> None:
+    """No session lost a device sample; ``nvml_path``'s sessions read
+    NVML."""
+    if where == "nvml_path" and dev["sources"] != ["nvml"]:
+        raise SmokeFailure(f"{where}: DEVICE source {dev['sources']}, not "
+                           "NVML")
+    if dev["failed_samples"]:
+        raise SmokeFailure(f"{where}: {dev['failed_samples']} failed device "
+                           f"samples ({dev['last_error']})")
 
 
 def nvidia_smi() -> str:
@@ -1242,6 +1347,76 @@ def runtime_leaks():
         runtime_probe.CudaRuntimeProbe._record = record
 
 
+TABLE1_BUDGET_S = 20.0
+
+
+def table1_phase(cols, labels, device="cuda"):
+    """Phase ``table1_path``: paper Table I's six baselines
+    (`repro_torch.core.baselines`, NumPy/SciPy on the host) and the GMM (on
+    the card) over the STEP-layer features of ``main_path``'s run, scored
+    with `evaluate` against its injected op_latency windows. Features by
+    the reference's protocol (`benchmarks/common.py::layer_train_eval`):
+    per-name baselines fitted on the clean steps, every step scored. Each
+    baseline is fitted on every step, supervised ones with the labels, at
+    the labels' contamination (`tests/test_baselines.py`); the GMM on the
+    clean steps at a 5% false-positive budget (`detect_with_gmm`). Gates:
+    every detector fits, every score is finite, the phase takes at most
+    TABLE1_BUDGET_S; F1 is reported, not gated."""
+    import numpy as np
+
+    from repro_torch.core.baselines import evaluate, make_detectors
+    from repro_torch.core.detector import GMMDetector
+    from repro_torch.core.events import Layer, select_columns
+    from repro_torch.core.features import LayerFeaturizer
+
+    t0 = time.perf_counter()
+    n = len(labels)
+    step = cols["step"]
+    clean = (step >= 0) & (step < n)
+    clean[clean] = ~labels[step[clean]]
+    feat = LayerFeaturizer(Layer.STEP)
+    clean_cols = select_columns(cols, clean)
+    if feat.fit(clean_cols) is None:
+        raise SmokeFailure("table1_path: no STEP rows in the clean steps")
+    X_clean = feat.transform(clean_cols).X
+    fs = feat.transform(cols)
+    valid = fs.steps >= 0
+    X = fs.X[valid]
+    y = labels[np.clip(fs.steps[valid], 0, n - 1)].astype(bool)
+    rows = {}
+    for name, det in make_detectors(contamination=float(y.mean()),
+                                    seed=0).items():
+        t = time.perf_counter()
+        try:
+            det.fit(X, y.astype(float))
+            scores = det.scores(X)
+            rows[name] = {**evaluate(det.predict(X), y),
+                          "finite": bool(np.isfinite(scores).all())}
+        except Exception as e:  # a detector that cannot fit fails the gate
+            rows[name] = {"error": repr(e)}
+        rows[name]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gmm = GMMDetector(n_components=4, contamination=0.05, seed=0,
+                      device=device).fit(X_clean)
+    scores = gmm.score(X)
+    rows["GMM"] = {**evaluate(scores < gmm.log_delta, y),
+                   "finite": bool(np.isfinite(scores).all()),
+                   "seconds": time.perf_counter() - t}
+    seconds = time.perf_counter() - t0
+    emit({"phase": "table1_path", "rows": int(len(X)),
+          "features": list(fs.names),
+          "clean_rows": int(len(X_clean)), "anomalous": int(y.sum()),
+          "detectors": rows, "seconds": seconds,
+          "budget_s": TABLE1_BUDGET_S})
+    bad = [k for k, r in rows.items() if "error" in r or not r["finite"]]
+    if bad:
+        raise SmokeFailure(f"table1_path: {bad} did not fit or gave "
+                           f"non-finite scores: {rows}")
+    if seconds > TABLE1_BUDGET_S:
+        raise SmokeFailure(f"table1_path took {seconds:.1f} s, over "
+                           f"{TABLE1_BUDGET_S} s")
+
+
 def session_phase(train, reset_counts, read_counts, read_variants):
     """`repro_torch.launch.train` in-process at full width (GPT-2 124M,
     bf16, batch 8, sequence 128, --inject-faults), once per mode of
@@ -1826,6 +2001,128 @@ def eval_pass_b(reset_counts, read_counts, read_all_variants):
             "seconds": time.perf_counter() - t_pass}, lines
 
 
+# the nvml phase: pass B's cells of these scenarios, batch mode, with the
+# device probe's nvml source
+NVML_SCENARIOS = ("clean_control", "degraded_device", "memory_leak")
+NVML_INJECTED_GB = 0.5  # fault windows' mean mem_gb over the rest, at least
+
+
+def nvml_phase(reset_counts, read_counts, read_all_variants):
+    """``--nvml-path OUT``: NVML_SCENARIOS as pass B builds its cells
+    (`eval_pass_b`: the full-width GPT-2 step, 240 steps, batch mode), the
+    DEVICE rows from the card through NVML in the sampler process
+    (``probe_options={"device": {"source": "nvml"}}``). Per cell: the
+    scores, the DEVICE layer's anomaly rate and the mean readings inside
+    and outside the fault windows. Returns the line; `check_nvml` gates it:
+    every DEVICE row from NVML, no failed sample, the card's power limit as
+    nvidia-smi gives it, readings a card can give, and each faulted cell's
+    injection visible in its rows (the fault is injected into the
+    readings, as DCGM's error injection does; it does not load the card).
+    The clean cell's FAR and diagnoses are reported, not gated."""
+    import numpy as np
+    import torch
+
+    from repro_torch import quickstart
+    from repro_torch.core.chaos import get_scenario
+    from repro_torch.core.probes.device_probe import DeviceProbe
+    from repro_torch.eval import matrix, runner
+    from repro_torch.models.model import batch_to_device
+    from repro_torch.session import Session
+
+    t_phase = time.perf_counter()
+    rows_seen = []  # (step, util, mem_gb, power_w, temp_c) of gpu0 rows
+    emit_rows = DeviceProbe._emit
+
+    def kept(self, recs):
+        ok = recs[recs["status"] == 0]
+        idx = np.searchsorted(self._mark_t, ok["ts"], side="right") - 1
+        steps = np.asarray(self._mark_n)[idx]
+        rows_seen.extend([n, *t] for n, t in zip(
+            steps.tolist(), ok["tele"][:, 0, :].tolist()))
+        return emit_rows(self, recs)
+
+    DeviceProbe._emit = kept
+    dev = torch.device("cuda")
+    batch, seq, data, state, step_fn = quickstart._workload(
+        False, dev, len(NVML_SCENARIOS) * EVAL_STEPS + quickstart.SETUP_STEPS)
+    for s in range(quickstart.SETUP_STEPS):  # graph capture, first use
+        state, _ = step_fn(state, batch_to_device(data.batch(s), dev))
+    torch.cuda.synchronize()
+    cfg = runner.EvalConfig()
+    cells = []
+    for name in NVML_SCENARIOS:
+        scenario = get_scenario(name)
+        spec = runner.scenario_spec(scenario, "batch", EVAL_STEPS, cfg,
+                                    seed=0)
+        spec.probe_options["device"]["source"] = "nvml"
+        session = Session(spec, device=dev)
+        del rows_seen[:]
+        t0 = time.perf_counter()
+        run, state, metrics = runner.run_model_cell(
+            session, scenario, EVAL_STEPS, cfg, step_fn, state, data)
+        row = matrix._row(run)
+        probe = session.collector["device"]
+        seen = np.asarray(rows_seen, dtype=np.float64).reshape(-1, 5)
+        inside = np.isin(seen[:, 0], np.flatnonzero(run.labels))
+        mean = {k: [float(seen[inside, i].mean()) if inside.any() else None,
+                    float(seen[~inside, i].mean()) if (~inside).any()
+                    else None]
+                for i, k in enumerate(("util", "mem_gb", "power_w",
+                                       "temp_c"), start=1)}
+        m = row["metrics"]
+        cells.append({
+            "scenario": name, "f1": m["f1"],
+            "false_alarm_rate": m["false_alarm_rate"],
+            "faults": f"{m['faults_detected']}/{m['faults_total']}",
+            "diagnoses": row.get("diagnosis", {}).get("kinds"),
+            "device_anomaly_rate": row["layers"].get("device", {}).get(
+                "anomaly_rate"),
+            "device_rows": int(len(seen)), "rows_in_faults": int(inside.sum()),
+            "mean_in_out_of_faults": mean, "probe": probe.stats(),
+            "loss_last": float(metrics[-1]["loss"]),
+            "seconds": time.perf_counter() - t0})
+        del session, run, metrics
+        gc.collect()
+    DeviceProbe._emit = emit_rows
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "nvml_path", "mode": "batch", "steps": EVAL_STEPS,
+            "batch": batch, "seq": seq, "cells": cells,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def check_nvml(line, power_limit_w) -> None:
+    """The gates of ``nvml_path`` (`nvml_phase`)."""
+    for c in line["cells"]:
+        where = f"nvml_path {c['scenario']}"
+        st = c["probe"]
+        if st["source"] != "nvml" or st["failed_samples"]:
+            raise SmokeFailure(f"{where}: source {st['source']}, "
+                               f"{st['failed_samples']} failed samples "
+                               f"({st['last_error']})")
+        if not st["power_limit_w"] or \
+                abs(st["power_limit_w"][0] - power_limit_w) > 1.0:
+            raise SmokeFailure(f"{where}: NVML's power limit "
+                               f"{st['power_limit_w']}, nvidia-smi's "
+                               f"{power_limit_w}")
+        lo_hi = st["reading_min_max"]
+        sane = {"util": (0.0, 100.0), "mem_gb": (0.0, 81.0),
+                "power_w": (1.0, power_limit_w + 50.0),
+                "temp_c": (5.0, 100.0)}
+        bad = {k: lo_hi.get(k) for k, (a, b) in sane.items()
+               if k not in lo_hi or lo_hi[k][0] < a or lo_hi[k][1] > b}
+        if bad or not c["device_rows"]:
+            raise SmokeFailure(f"{where}: readings out of range {bad} or "
+                               f"no rows ({c['device_rows']})")
+        if c["scenario"] != "clean_control":
+            inside, outside = c["mean_in_out_of_faults"]["mem_gb"]
+            if inside is None or inside < outside + NVML_INJECTED_GB:
+                raise SmokeFailure(
+                    f"{where}: the injection did not reach the readings: "
+                    f"mem_gb {inside} in the fault windows, {outside} out")
+
+
 def child_main(flag, out_path, *extra) -> int:
     """``chip_smoke.py FLAG OUT [ARG]``: one of `CHILDREN` alone, in a
     process of its own, with TF32 off as in `main`; what it returns is
@@ -1835,9 +2132,12 @@ def child_main(flag, out_path, *extra) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    watch_device_probes()
     got = CHILDREN[flag](*counters(), *extra)
     with open(out_path, "w") as f:  # NumPy scalars as Python numbers
         json.dump(got, f, default=lambda o: o.item())
+    with open(out_path + ".device.json", "w") as f:  # not yet reported
+        json.dump(DEVICE_RUNS, f)
     return 0
 
 
@@ -1861,6 +2161,7 @@ def isolated(flag, what, timeout=600):
     wall = time.perf_counter() - t0
     sys.stdout.write(proc.stdout)
     sys.stdout.flush()
+    adopt_device_runs(out)
     if proc.returncode or not os.path.exists(out):
         raise SmokeFailure(f"{what}: its process exited {proc.returncode}: "
                            f"{proc.stderr[-2000:]}")
@@ -3155,6 +3456,7 @@ def run_ckpt(ckpt_dir, sigint_at=None, plant_at=None, timeout=600):
         rc = proc.wait()
         err_f.seek(0)
         err = err_f.read()
+    adopt_device_runs(out)
     if rc or not os.path.exists(out):
         raise SmokeFailure(f"ckpt_path: a run exited {rc}: {err[-2000:]} "
                            f"{''.join(tail)[-1500:]}")
@@ -3881,7 +4183,7 @@ CHILDREN = {"--eval-pass-a": eval_pass_a, "--eval-pass-b": eval_pass_b,
             "--serve-arch-reduced": serve_arch_reduced,
             "--serve-arch-llama": serve_arch_llama,
             "--serve-arch-mamba": serve_arch_mamba,
-            "--serve-arch-moe": serve_arch_moe}
+            "--serve-arch-moe": serve_arch_moe, "--nvml-path": nvml_phase}
 
 
 def build_phase(build, kmod, card):
@@ -3984,6 +4286,7 @@ def main() -> int:
     sys.path.insert(0, src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    watch_device_probes()
     from repro_torch import quickstart
     from repro_torch.core.events import Layer
     from repro_torch.kernels import build, gmm_score as kmod, ops, ref
@@ -4057,6 +4360,9 @@ def main() -> int:
         raise SmokeFailure(f"main path: no operator or runtime-probe rows: "
                            f"{out['rows_per_layer']}, {out['runtime_probe']}")
     shape = max(out["layer_shapes"].values())
+
+    # 3b. Table I's baselines and the GMM on the main path's STEP features
+    table1_phase(out["columns"], out["labels"])
     del out
 
     # 4. the stream path on the card
@@ -4084,6 +4390,11 @@ def main() -> int:
 
     # 8. the scenario-matrix evaluation harness: the CI gate, then full width
     ev = eval_phase()
+
+    # 8b. the device probe's NVML source: pass B's device cells, real readings
+    nv = isolated("--nvml-path", "nvml_path")
+    emit(nv)
+    check_nvml(nv, power_limit_w)
 
     # 9. checkpointing: a run, a run stopped by SIGINT, its resume
     ck = isolated("--ckpt-path", "ckpt_path")

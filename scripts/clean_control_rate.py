@@ -88,7 +88,12 @@ models only the step probe's ``executable_run``, as the reference's does,
 ``noproc`` has the sampler read /proc once and reuse it, ``spin`` has the
 step probe spin on its event after every step (not only under 2 ms),
 ``nohooks`` leaves torch's CUDA entry points unhooked (the runtime probe
-attached but blind).
+attached but blind), ``nosampler`` attaches the device probe without
+starting its sampler (no DEVICE rows, no sweep), ``model`` runs the
+telemetry model's sweeps in the sampler process (out of the job's
+interpreter) instead of the thread, ``nvml`` reads the card through NVML
+in the sampler process (the probe's ``source="nvml"``). ``gate`` and
+``noproc`` act on the in-process (thread) sampler only.
 None is a repair: each changes what is measured. ``--scenario`` builds
 another scenario's cell in place of the clean control (pass B's
 ``runtime_stall``, to read the kind it is blamed on).
@@ -121,7 +126,7 @@ CPU_STARVED_US = 2000  # a step throttled or CPU-pressured this long
 WATCH_SLACK_S = 0.003  # the watchdog fires past the running median + this
 EVIDENCE_LAYERS = ("device", "collective")  # what the diagnoser splits on
 CONDITIONS = ("base", "switch", "gate", "xla_exec", "noproc", "spin",
-              "nohooks")
+              "nohooks", "nosampler", "model", "nvml")
 RUSAGE = ("ru_utime", "ru_stime", "ru_nvcsw", "ru_nivcsw", "ru_minflt",
           "ru_majflt")
 SHORT = {"ru_utime": "user_ms", "ru_stime": "sys_ms", "ru_nvcsw": "vcs",
@@ -174,6 +179,27 @@ def apply_condition(name: str) -> None:
             return self._first
 
         ProcStats.sample = once
+    elif name == "nosampler":
+        from repro_torch.core.probes.device_probe import DeviceProbe
+
+        DeviceProbe._attach = lambda self: None  # attached, never sampling
+    elif name == "model":
+        from repro_torch.core.probes.device_probe import DeviceProbe
+        from repro_torch.session import registry
+
+        @registry.register_probe("device")
+        def _model_in_helper(opts, peers):
+            return DeviceProbe(interval=float(opts.get("interval", 0.25)),
+                               n_devices=int(opts.get("n_devices", 1)),
+                               sampler="process")
+    elif name == "nvml":
+        from repro_torch.session import registry
+
+        factory = registry._device_probe
+
+        @registry.register_probe("device")
+        def _nvml(opts, peers):
+            return factory({**opts, "source": "nvml"}, peers)
 
 
 def rusage_delta(a, b) -> dict:
@@ -304,26 +330,83 @@ def cpu_delta(a, b) -> dict:
 # /proc read's (start, end) on the perf_counter clock
 SWEEPS: list = []
 PROC_READS: list = []
+DRAINS: list = []  # the job-side drains of the sampler process's records
+DEVICE_STATS: list = []  # each detached device probe's `stats()`
+# each sampler-process sweep as a row (perf_counter ts, step, util, mem_gb,
+# power_w, temp_c), and each span of the monitor's own detection work
+# (executor tasks and the session's detection pauses), for ``.device.json``
+DEVICE_ROWS: list = []
+ZONES: list = []
+
+
+def clocked_into(fn, into):
+    """``fn`` with each call's (start, end) appended to ``into``."""
+    def timed(self, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(self, *a)
+        finally:
+            into.append((t0, time.perf_counter()))
+    return timed
 
 
 def clock_sampler() -> None:
-    """Time every sweep of the device probe's sampler (`sample_once`) and
-    its /proc reads (`ProcStats.sample`) from here on."""
+    """Time every sweep of the device probe's sampler from here on: the
+    thread's (`sample_once`) and its /proc reads (`ProcStats.sample`), or
+    the sampler process's, from its records (their ts and sweep ms, on
+    this clock); and the job-side drains of those records (`DRAINS`)."""
     from repro_torch.core.probes import device_probe
 
-    def clocked(fn, into):
-        def timed(self, *a):
-            t0 = time.perf_counter()
-            try:
-                return fn(self, *a)
-            finally:
-                into.append((t0, time.perf_counter()))
-        return timed
+    probe = device_probe.DeviceProbe
+    if hasattr(probe, "stats"):  # the sampler process (not in older trees)
+        emit, detach = probe._emit, probe._detach
 
-    device_probe.DeviceProbe.sample_once = clocked(
-        device_probe.DeviceProbe.sample_once, SWEEPS)
-    device_probe.ProcStats.sample = clocked(device_probe.ProcStats.sample,
-                                            PROC_READS)
+        def emit_clocked(self, recs):
+            import numpy as np
+
+            SWEEPS.extend((self._t0 + ts, self._t0 + ts + ms / 1e3)
+                          for ts, ms in zip(recs["ts"].tolist(),
+                                            recs["sweep_ms"].tolist()))
+            ok = recs[recs["status"] == 0]
+            idx = np.searchsorted(self._mark_t, ok["ts"], side="right") - 1
+            steps = np.asarray(self._mark_n)[idx]
+            DEVICE_ROWS.extend(
+                [self._t0 + t, int(n), *tele]
+                for t, n, tele in zip(ok["ts"].tolist(), steps.tolist(),
+                                      ok["tele"][:, 0, :].tolist()))
+            return emit(self, recs)
+
+        def detach_kept(self):
+            detach(self)
+            DEVICE_STATS.append(self.stats())
+
+        probe._emit, probe._detach = emit_clocked, detach_kept
+        probe.drain = clocked_into(probe.drain, DRAINS)
+    probe.sample_once = clocked_into(probe.sample_once, SWEEPS)
+    device_probe.ProcStats.sample = clocked_into(
+        device_probe.ProcStats.sample, PROC_READS)
+    clock_zones()
+
+
+def clock_zones() -> None:
+    """Record the spans of the monitor's own detection work (`ZONES`)."""
+    from repro_torch.detect import executor
+    from repro_torch.session import session
+
+    executor.DetectionExecutor._execute = clocked_into(
+        executor.DetectionExecutor._execute, ZONES)
+    pause = session.Session._detection_pause
+
+    @contextlib.contextmanager
+    def pause_clocked(self):
+        t0 = time.perf_counter()
+        try:
+            with pause(self):
+                yield
+        finally:
+            ZONES.append((t0, time.perf_counter()))
+
+    session.Session._detection_pause = pause_clocked
 
 
 # the step in flight as the step probe saw it: its STEP row's duration, and
@@ -672,6 +755,7 @@ class StepWatch:
         self.names, self.idents, self.py_threads = {}, {}, []
         self.tasks0 = {}
         self.n_sweeps, self.n_reads = len(SWEEPS), len(PROC_READS)
+        self.n_drains = len(DRAINS)
 
     def _cell_start(self) -> None:
         """At the first monitored step (the probes attached): the live
@@ -811,6 +895,7 @@ class StepWatch:
             "thread_cpu_ms": dict(sorted(cpu.items(),
                                          key=lambda kv: -kv[1])[:8]),
             "sampler_sweep": spread(sweeps), "proc_read": spread(reads),
+            "sampler_drain": spread(DRAINS[self.n_drains:]),
             "steps": len(rows), "stalls": len(stalls),
             "stall_at": stalls[:12],
             "stall_rows": [dict({k: round(float(rows[i][k]), 3)
@@ -837,6 +922,9 @@ class StepWatch:
             "psi_some_us": sum(r["psi_some_us"] or 0 for r in rows),
             "stalls_in_a_proc_read": sum(rows[i]["proc_read_ms"] > 0
                                          for i in stalls),
+            "stalls_in_a_sweep": sum(rows[i]["sampler_ms"] > 0
+                                     for i in stalls),
+            "steps_in_a_sweep": sum(r["sampler_ms"] > 0 for r in rows),
             "stalls_in_a_spin_gap": sum(rows[i]["spin_gap_ms"] > 0
                                         for i in stalls),
             "steps_in_a_spin_gap": sum(r["spin_gap_ms"] > 0 for r in rows),
@@ -1299,6 +1387,10 @@ def host_totals(hosts) -> dict:
             for k in ("fn_ms", "sync_ms", "graph_ms")] if hosts else None,
         "stall_spin_gap_ms": avg("spin_gap_ms"),
         "stalls_in_a_proc_read": of_stalls("stalls_in_a_proc_read"),
+        "stalls_in_a_sweep": of_stalls("stalls_in_a_sweep"),
+        "steps_in_a_sweep_share": round(float(
+            sum(h["steps_in_a_sweep"] for h in hosts)
+            / max(sum(h.get("steps", 0) for h in hosts), 1)), 4),
         "stalls_in_a_spin_gap": of_stalls("stalls_in_a_spin_gap"),
         "stalls_throttled": of_stalls("stalls_throttled"),
         "stalls_psi": of_stalls("stalls_psi"),
@@ -1421,6 +1513,7 @@ def cells_main(args, dev, ap) -> int:
     for cell in range(args.cells):
         watch = StepWatch(args.out, f"{tag}_cell{cell}", prior_s,
                           args.stacks)
+        n_rows, n_zones = len(DEVICE_ROWS), len(ZONES)
         steal0 = steal_s()
         with recorded() as got, collections() as gcs:
             run = one(lambda session: watch_session(session, watch))
@@ -1467,9 +1560,14 @@ def cells_main(args, dev, ap) -> int:
                 "lasting_shift": lasting_shift(report, run.eval_start, n),
                 "diagnosed": diagnosed, "wall_s": row["wall_s"],
                 "xla_prefix": prefix_spread("xla"),
+                "device": DEVICE_STATS[-1] if DEVICE_STATS else None,
                 "host": watch.summary()}
         print(json.dumps(line), flush=True)
         cells.append(line)
+        with open(f"{watch.base}.device.json", "w") as f:
+            json.dump({"rows": DEVICE_ROWS[n_rows:], "zones": ZONES[n_zones:],
+                       "steps": watch.spans,
+                       "step_rows_ts": watch.step_ts}, f)
         del run, report
         gc.collect()
     if fixture_out is not None:

@@ -80,8 +80,15 @@ class Collector:
 
     # -- lifecycle ------------------------------------------------------------
     def attach(self) -> None:
-        for p in self.probes:
-            p.attach(self.buffer, t0=self.t0)
+        done = []
+        try:
+            for p in self.probes:
+                p.attach(self.buffer, t0=self.t0)
+                done.append(p)
+        except BaseException:  # a probe that cannot attach: none stays on
+            for p in reversed(done):
+                p.detach()
+            raise
 
     def detach(self) -> None:
         for p in reversed(self.probes):

@@ -95,7 +95,8 @@ class StepProbe(Probe):
             self._last_exec = exec_dur
             if self.extra_latency:  # python-layer fault: real host-side stall
                 time.sleep(self.extra_latency)
-            dur = (self.now() - t0) + self.extra_xla + self.extra_op
+            t1 = self.now()
+            dur = (t1 - t0) + self.extra_xla + self.extra_op
             step = self.step_count
             self.step_count += 1
             # runtime layer: the executable-run duration an eBPF uprobe on
@@ -119,6 +120,9 @@ class StepProbe(Probe):
                     duty = min(1.0, 0.7 + 0.1 * (dur % 0.1))
                 self.device_probe.current_duty = duty
                 self.device_probe.current_mem_gb = self.mem_gb_per_step
+                # the sampler process's finished sweeps join the table here,
+                # after the step's timed window, on the thread that owns it
+                self.device_probe.step_done(t1, self.step_count)
             return out
 
         monitored.__wrapped__ = fn

@@ -2,8 +2,8 @@
 of `repro/detect/isoforest.py`, unchanged: NumPy float64 on the host, so
 the same seed grows the same trees).
 
-The paper's Table-I IsolationForest baseline (the JAX package's
-`repro/core/baselines.py`, not ported yet) walks Python dict trees per
+The paper's Table-I IsolationForest baseline
+(`repro_torch/core/baselines.py`) walks Python dict trees per
 row — fine for an offline table, unusable per window. This is the
 production variant behind the ``isoforest`` detector backend:
 

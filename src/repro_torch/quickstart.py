@@ -108,7 +108,8 @@ def run(*, reduced_model: bool = False, device: DeviceLike = None,
         log_every: int = 0) -> Dict[str, Any]:
     """Train with the monitor attached, then detect and govern. Returns the
     losses, the per-layer detection results, the STEP layer's hit and false
-    rates against the injected windows, the governor's actions and timings."""
+    rates against the injected windows, the governor's actions and timings,
+    and the run's event columns beside each step's fault label."""
     dev = resolve_device(device)
     batch, seq, data, state, step_fn = _workload(reduced_model, dev, steps)
 
@@ -183,6 +184,8 @@ def run(*, reduced_model: bool = False, device: DeviceLike = None,
                            for layer in Layer},
         "runtime_probe": probe_counts(collector["xla"]),
         "failed_samples": collector["device"].failed_samples,
+        # the run's rows and step labels, for detectors fitted afterwards
+        "columns": cols, "labels": labels,
     }
 
 

@@ -17,12 +17,15 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
 from repro_torch.core.probes import (CollectiveProbe, CudaRuntimeProbe,
                                      DeviceProbe, OperatorProbe, Probe,
                                      PythonProbe, StepProbe)
 from repro_torch.core.probes.device_probe import (H100_PEAK_FLOPS,
                                                   H100_POWER_LIMIT_W,
-                                                  GpuTelemetryModel)
+                                                  cuda_uuids)
+from repro_torch.core.probes.nvml import LIBRARY
 
 ProbeFactory = Callable[[Dict[str, Any], Dict[str, Probe]], Probe]
 
@@ -58,15 +61,19 @@ def build_probe(name: str, options: Optional[Dict[str, Any]] = None,
 
 
 def build_probes(names: List[str],
-                 probe_options: Optional[Dict[str, Dict[str, Any]]] = None
-                 ) -> List[Probe]:
+                 probe_options: Optional[Dict[str, Dict[str, Any]]] = None,
+                 device=None) -> List[Probe]:
     """Build a probe suite in spec order; later factories see earlier probes
-    (keyed by registry name) as peers."""
+    (keyed by registry name) as peers. ``device`` (the session's) reaches
+    every factory as the ``device`` option unless the spec sets one."""
     opts = probe_options or {}
     peers: Dict[str, Probe] = {}
     out: List[Probe] = []
     for name in names:
-        p = build_probe(name, opts.get(name), peers)
+        o = dict(opts.get(name) or {})
+        if device is not None:
+            o.setdefault("device", device)
+        p = build_probe(name, o, peers)
         peers[name] = p
         out.append(p)
     return out
@@ -145,11 +152,27 @@ def _collective_probe(opts: Dict[str, Any], peers: Dict[str, Probe]) -> Probe:
 
 @register_probe("device")
 def _device_probe(opts: Dict[str, Any], peers: Dict[str, Probe]) -> Probe:
+    # ``source``: "model" (the default, on either device) or "nvml", the
+    # card of the session's device read through NVML in a sampler process
+    # (its enforced power limit in place of ``peak_w``; a missing library
+    # fails at attach, never falls back to the model)
     n = int(opts.get("n_devices", 1))
-    peak_w = float(opts.get("peak_w", H100_POWER_LIMIT_W))
-    return DeviceProbe(interval=float(opts.get("interval", 0.25)),
-                       telemetry=[GpuTelemetryModel(peak_w=peak_w, seed=i)
-                                  for i in range(n)])
+    interval = float(opts.get("interval", 0.25))
+    source = str(opts.get("source", "model"))
+    if source == "nvml":
+        device = torch.device(opts.get("device", "cpu"))
+        if device.type != "cuda":
+            raise ValueError("the device probe's nvml source reads a card: "
+                             f"the session's device is {device}")
+        index = torch.cuda.current_device() if device.index is None \
+            else device.index
+        return DeviceProbe(interval=interval, source="nvml",
+                           sampler="process", uuids=cuda_uuids(index, n),
+                           nvml_lib=str(opts.get("nvml_lib", LIBRARY)))
+    if source != "model":
+        raise ValueError(f"device probe source {source!r}: model or nvml")
+    return DeviceProbe(interval=interval, n_devices=n,
+                       peak_w=float(opts.get("peak_w", H100_POWER_LIMIT_W)))
 
 
 @register_probe("step")

@@ -261,7 +261,8 @@ class Session:
         if self.off:
             raise RuntimeError("mode 'off' sessions have no monitored nodes")
         if node_id not in self._nodes:
-            probes = build_probes(self.spec.probes, self.spec.probe_options)
+            probes = build_probes(self.spec.probes, self.spec.probe_options,
+                                  device=self.device)
             col = Collector(probes, self.spec.capacity)
             handle = NodeHandle(self, node_id, col)
             self._nodes[node_id] = handle

@@ -8,8 +8,11 @@ GMM fit and a streaming detector's warmup and tick on the card against the
 same on the CPU, the eval runner's graphed synthetic step against the eager
 one and one scenario-matrix cell on the card, the serve plane's graphed
 slot step against the eager one (GPT-2 and every other token decoder, the
-device index read by RoPE and the ring slot) and its launcher, and
-attention's float32-result product on bf16 operands against the CPU's.
+device index read by RoPE and the ring slot) and its launcher,
+attention's float32-result product on bf16 operands against the CPU's,
+and the device probe's NVML source (the handle is torch's card by UUID,
+``mem_gb`` follows an allocation, ``util`` rises under load, a hidden
+library fails the session's attach).
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -23,8 +26,12 @@ eager step's kernels, so its loss and gradients agree within float32
 rounding; the GMM fit compounds 60 EM iterations of float32 sums taken in
 another order on each device, so it is held at rtol 1e-3. The EM kernels'
 are tests/test_kernels.py's `_assert_tuple_close`: rtol 1e-4 / atol 1e-4 x
-max(|want|, 1).
+max(|want|, 1). NVML's ``mem_gb`` is held within 1 GiB of
+``mem_get_info``'s used bytes (what the GPU driver reserves beside CUDA's
+view) and a 4 GiB allocation's step within 0.25 GiB.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -935,3 +942,107 @@ def test_launcher_resume_on_the_card(cuda, tmp_path, monkeypatch):
     resumed = train.train(args(tmp_path / "cut"))
     assert cut["interrupted"] and resumed["start_step"] == 7
     assert cut["losses"] + resumed["losses"] == full["losses"]
+
+
+# -- the device probe's NVML source on the card --------------------------------
+
+def _nvml_probe(interval=0.1, **kw):
+    from repro_torch.core.probes.device_probe import DeviceProbe, cuda_uuids
+
+    return DeviceProbe(interval=interval, source="nvml", sampler="process",
+                       uuids=cuda_uuids(torch.cuda.current_device(), 1), **kw)
+
+
+def _gpu_rows(table):
+    cols = table.drain_columns()
+    keep = cols["name"] == "gpu0"
+    return {k: cols[k][keep] for k in ("ts", "util", "mem_gb", "power_w",
+                                       "temp_c")}
+
+
+def test_nvml_handle_is_torch_s_device(cuda):
+    from repro_torch.core.probes.device_probe import cuda_uuids
+    from repro_torch.core.probes.nvml import Nvml
+
+    index = torch.cuda.current_device()
+    (uuid,) = cuda_uuids(index, 1)
+    lib = Nvml()
+    try:
+        h = lib.handle(uuid)
+        assert lib.uuid(h) == uuid
+        assert 100.0 <= lib.power_limit_w(h) <= 1000.0
+        total = lib.memory(h)[0]
+        # NVML's total and CUDA's may differ by what the GPU driver reserves
+        assert abs(total - torch.cuda.mem_get_info(index)[1]) < 2**30
+    finally:
+        lib.shutdown()
+
+
+def test_nvml_memory_tracks_a_4_gb_allocation(cuda):
+    """``mem_gb`` against ``mem_get_info``'s used bytes: within 1 GiB (what
+    the GPU driver reserves beside CUDA's view), and the 4 GiB allocation's
+    step within 0.25 GiB."""
+    from repro_torch.core.events import EventTable
+
+    def used():
+        free, total = torch.cuda.mem_get_info()
+        return (total - free) / 2**30
+
+    probe, table = _nvml_probe(), EventTable(4096)
+    probe.attach(table)
+    try:
+        time.sleep(0.5)
+        probe.drain()
+        before, want_before = _gpu_rows(table)["mem_gb"][-1], used()
+        block = torch.ones(4 * 2**30, dtype=torch.uint8, device=cuda)
+        torch.cuda.synchronize()
+        time.sleep(0.5)
+        probe.drain()
+        after, want_after = _gpu_rows(table)["mem_gb"][-1], used()
+        del block
+    finally:
+        probe.detach()
+    assert probe.failed_samples == 0, probe.last_error
+    assert abs(before - want_before) < 1.0 and abs(after - want_after) < 1.0
+    assert abs((after - before) - 4.0) < 0.25, (before, after)
+
+
+def test_nvml_util_rises_under_bf16_matmuls(cuda):
+    from repro_torch.core.events import EventTable
+
+    probe, table = _nvml_probe(), EventTable(4096)
+    a = torch.randn(8192, 8192, device=cuda, dtype=torch.bfloat16)
+    probe.attach(table)
+    try:
+        time.sleep(1.5)
+        probe.drain()
+        idle = _gpu_rows(table)
+        t_end = time.perf_counter() + 2.5
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                a = (a @ a).clamp_(-1, 1)
+            torch.cuda.synchronize()
+        probe.drain()
+        busy = _gpu_rows(table)
+    finally:
+        probe.detach()
+    assert probe.failed_samples == 0, probe.last_error
+    idle_util = float(np.median(idle["util"][-4:]))
+    busy_util = float(np.median(busy["util"][-8:]))
+    assert busy_util > 80.0 and busy_util > idle_util + 30.0, \
+        (idle_util, busy_util)
+    assert busy["power_w"].max() > idle["power_w"].min()
+
+
+def test_cuda_session_with_nvml_hidden_fails_at_attach(cuda):
+    import sys
+
+    from repro_torch.session import MonitorSpec, Session
+
+    spec = MonitorSpec(mode="batch", probe_options={
+        "device": {"source": "nvml", "nvml_lib": "libnvidia-ml-hidden.so.1"}})
+    session = Session(spec, device=cuda)
+    with pytest.raises(RuntimeError, match="nvml sampler did not start"):
+        with session.monitoring():
+            pass
+    assert sys.getprofile() is None  # the python probe went with it

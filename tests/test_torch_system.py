@@ -263,7 +263,14 @@ def test_port_sources_and_chip_smoke_import_no_jax():
             PORT / "obs" / "parser.py", PORT / "obs" / "board.py",
             PORT / "obs" / "httpd.py", PORT / "obs" / "sinks.py",
             PORT / "obs" / "selfmetrics.py",
+            PORT / "core" / "probes" / "device_sampler.py",
+            PORT / "core" / "probes" / "nvml.py",
+            PORT / "core" / "baselines.py", PORT / "core" / "trees.py",
             ROOT / "scripts" / "clean_control_rate.py"} <= set(files)
     hits = [f"{f}:{m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
+    assert not hits, hits
+    # NVML through ctypes only, and no psutil anywhere in the port
+    psutil = re.compile(r"^\s*(import|from)\s+(psutil|pynvml)\b", re.M)
+    hits = [str(f) for f in files if psutil.search(f.read_text())]
     assert not hits, hits
