@@ -98,7 +98,18 @@ Phases, each printing one JSON line of its own:
    (isoforest, mad, spectral), 160 steps each: steps/s, the overhead
    against ``session_path``'s unmonitored rate, incidents against the
    fault windows. Gates: finite loss, a detection for every warmed layer,
-   no lost batch, no GMM kernel launch and no plain GMM call.
+   no lost batch, no GMM kernel launch and no plain GMM call. Then
+   ``mesh_path`` (`mesh_phase`, in a child, ``--mesh-path OUT``):
+   `repro_torch.launch.train` at full width over a 1 x 1 mesh
+   (``--data-mesh 1 --model-mesh 1``, a process group of one on NCCL: one
+   card holds one rank) in batch mode with ``--inject-faults``, 120 steps,
+   after the same run without a mesh, unmonitored. Gates: the first 20
+   losses equal the no-mesh run's (bit for bit; within 1e-6 relative under
+   ``unmet``; more fails); the STEP layer's hit rate > 0.5 and > 2x its
+   false rate; the COLLECTIVE schedule read off the step (none at one
+   rank: no row), never a made-up one; gmm_score and gmm_best launched,
+   specialised, no plain call; no runtime row in a detection zone. Its
+   steady steps/s is printed beside ``session_path``'s batch rate.
 9. ``eval_path``: the scenario-matrix evaluation harness on the card, in
    two passes, each in a child process of its own (``chip_smoke.py
    --eval-pass-a OUT``, ``--eval-pass-b OUT``), whose CUDA context has run
@@ -186,7 +197,8 @@ Phases, each printing one JSON line of its own:
    kernels as pass B's; mean blamed-kind accuracy under 0.5 is listed
    under ``unmet``.
 13. ``arch_path``: the reference's other model families and training
-   modes, a process per model (`isolated`). (a) ``--arch-reduced``: every
+   modes, a process per uncut model (`isolated`). (a) `arch_reduced`
+   (alone: ``--arch-reduced``; in the smoke after (b), in its process): every
    registered architecture at its reduced size in bf16, its graphed
    forward and backward against eager with one microbatch and two, and its
    whole train step (forward, backward and the update in one CUDA graph)
@@ -200,7 +212,14 @@ Phases, each printing one JSON line of its own:
    > 0.5 and > 2x its false rate, gmm_score and gmm_best launched
    specialised with no plain call, operator and runtime rows, no runtime
    row in a detection zone; steps/s, ms a step, set-up seconds, peak
-   memory and the unmonitored rate printed. (c) ``--arch-mamba``: Mamba2
+   memory and the unmonitored rate printed; then, in the same process,
+   its whole train step graphed with ``Runtime.remat`` ``none``, ``full``
+   and ``dots``, 10 steps each from the same weights (AdamW): the losses,
+   ms a step and peak memory (over the steps, and over one eager forward
+   and backward); ``full`` and ``dots`` must give ``none``'s losses
+   (within 1e-6 relative) and ``full`` a lower forward and backward
+   peak. (c)
+   ``--arch-mamba``: Mamba2
    2.7B at full width in stream mode (75 steps, the weights drawn on the
    card): finite loss, all four kernels launched specialised with no plain
    call, no lost batch. (d) ``--arch-moe``: DeepSeek-V2 at its published
@@ -211,7 +230,8 @@ Phases, each printing one JSON line of its own:
    the first 3 within graph_check's bars of the eager ones, the loss
    falling; ms a step and the tokens dropped at capacity printed.
 14. ``serve_arch_path``: decode and serving of the other families, a
-   process per model (`isolated`). (a) ``--serve-arch-reduced``: every
+   process per uncut model (`isolated`). (a) `serve_arch_reduced` (alone:
+   ``--serve-arch-reduced``; in the smoke after (d), in its process): every
    registered decoder but GPT-2 at its reduced size: the graphed slot
    step bitwise equal to the eager one over >= 48 steps with joins and an
    epoch reset, in bf16 (Pixtral's backbone, which takes embeddings:
@@ -243,7 +263,11 @@ Phases, each printing one JSON line of its own:
    bf16 run flipped left out and counted), no pair dropped there; the
    pairs dropped at the default capacity printed.
 15. ``kernel_scaling``: kernel and plain times at N = 4096 and 2^20 (D=4,
-   K=4 for the scoring kernels; D=4, K=3 for the EM kernels).
+   K=4 for the scoring kernels; D=4, K=3 for the EM kernels). At the
+   main path's shape ``gmm_score``'s library call is timed beside the
+   kernel (`library_score`: ``MultivariateNormal(loc,
+   precision_matrix=U U^T).log_prob``) and must agree with it within the
+   kernel's float32 tolerance.
 16. ``profile``: torch.profiler over 5 full-width training steps, one
    GMMDetector fit at the main path's largest layer shape, and one
    streaming detection tick at the stream path's shapes: device time, the
@@ -260,7 +284,8 @@ p99, the job-side drain's µs a step and the failed samples, which must be
 Then the ``kernels`` line (each kernel's launches on its path — the main
 path for the scoring kernels, the stream path for the EM kernels — its
 largest error against the plain version at that path's largest shape, its
-device time per wrapper call, the plain version's, its bound, and beside
+device time per wrapper call, the plain version's, its bound, the library
+call's where one computes the same function (``gmm_score``), and beside
 them the launch alone, the eager per-call time, the kernels and memsets a
 wrapper call puts on the stream, counted with torch.profiler, which must be
 one kernel and, for the EM kernels, one memset, and the variants each path
@@ -317,7 +342,8 @@ class SmokeFailure(Exception):
 # that detached since the previous one (`watch_device_probes`)
 PATH_PHASES = ("main_path", "stream_path", "session_path", "fleet_path",
                "families_path", "eval_path", "ckpt_path", "obs_path",
-               "serve_path", "arch_path", "serve_arch_path", "nvml_path")
+               "serve_path", "arch_path", "serve_arch_path", "nvml_path",
+               "mesh_path")
 DEVICE_RUNS = []  # each detached device probe's stats, until reported
 
 
@@ -952,13 +978,14 @@ def bound_ms(kernel, N, D, K, x_bytes=4):
                                        else "operations")
 
 
-def measure(ops, kmod, N, D, K, reps):
+def measure(ops, kmod, N, D, K, reps, library=False):
     """Times of each kernel and its plain version on one float32 input, U
     in the EM loop's layout (a transposed view). ``ms`` / ``plain_ms``:
     device time of a wrapper call (its one launch) and of a plain call;
     ``kernel_only_ms``: the launch alone, through the C entry point;
     ``host_ms`` / ``plain_host_ms``: back-to-back eager calls, bound by the
-    host at small N; ``nodes``: what a wrapper call puts on the stream."""
+    host at small N; ``nodes``: what a wrapper call puts on the stream;
+    with ``library``, ``gmm_score``'s library call's (`library_score`)."""
     import torch
 
     X, means, U = make_params(N, D, K, 5, torch.float32)
@@ -988,8 +1015,39 @@ def measure(ops, kmod, N, D, K, reps):
             "plain_host_ms": host_ms(
                 lambda: fn(X, means, U, backend="plain"), reps),
             "nodes": nodes_per_call(lambda: fn(X, means, U)),
-            "bound_ms": b, "bound_by": by}
+            # gmm_best: no one call takes the densities' max and argmax
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+    if library:
+        res["gmm_score"].update(library_score(ops, X, means, U, reps))
     return res
+
+
+def library_score(ops, X, means, U, reps):
+    """The one PyTorch call that computes ``gmm_score``'s function, the
+    (N, K) Gaussian log densities: ``MultivariateNormal(loc=means,
+    precision_matrix=U U^T).log_prob(X[:, None, :])``, timed as the kernel
+    is (`device_ms`). The distribution is built once, outside the timing:
+    its Cholesky factorisation checks its result on the host, which a CUDA
+    graph cannot hold. Its output against the kernel's: the largest
+    absolute error, and whether it is within the kernel's own float32
+    tolerance (rtol 1e-5, atol 1e-4). At the main path's shape only: at
+    N=2^20 the call is slow and wrong, and its capture in a CUDA graph
+    crashed the process (`scripts/library_score.py` measures it there)."""
+    import torch
+
+    Uc = U.contiguous()
+    mvn = torch.distributions.MultivariateNormal(
+        loc=means, precision_matrix=Uc @ Uc.transpose(-1, -2),
+        validate_args=False)
+
+    def call():
+        return mvn.log_prob(X[:, None, :])
+
+    got, want = call(), ops.gmm_score(X, means, U)
+    return {"library_ms": device_ms(call, reps),
+            "library_max_abs_err": float((got - want).abs().max()),
+            "library_agrees": bool(torch.allclose(got, want, rtol=1e-5,
+                                                  atol=1e-4))}
 
 
 def measure_em(ops, smod, N, D, K, reps):
@@ -1030,7 +1088,9 @@ def measure_em(ops, smod, N, D, K, reps):
             "plain_host_ms": host_ms(
                 lambda: fn(X, log_w, means, U, backend="plain"), reps),
             "nodes": nodes_per_call(lambda: fn(X, log_w, means, U)),
-            "bound_ms": b, "bound_by": by}
+            # no one PyTorch call computes the E-step's reductions (the
+            # responsibilities' log-sum-exp, then nk, sx, sxx and ll)
+            "bound_ms": b, "bound_by": by, "library_ms": None}
     return res
 
 
@@ -3263,8 +3323,8 @@ def serve_arch_moe(reset_counts, read_counts, read_all_variants):
         route = tmoe.route
         rt = decode_runtime(torch.float32, capacity_factor)
 
-        def kept(p, prefix, c, xf):
-            got = route(p, prefix, c, xf)
+        def kept(p, prefix, c, xf, rt_=None):
+            got = route(p, prefix, c, xf, rt_)
             C = tmoe._capacity(xf.shape[0], c.moe_top_k, c.n_experts,
                                capacity_factor)
             counted[where[0]] += int(tmoe.dropped(got[2], c.n_experts, C))
@@ -3289,23 +3349,25 @@ def serve_arch_moe(reset_counts, read_counts, read_all_variants):
     del params, extras
     gc.collect()
     torch.cuda.empty_cache()
+    # the reduced decoders in this process: one CUDA context fewer
+    out["reduced_models"] = serve_arch_reduced(reset_counts, read_counts,
+                                               read_all_variants)
     return out
 
 
 def serve_arch_phase():
     """Phase ``serve_arch_path``: decode and serving of the other families
-    on the card, a process per model (`isolated`): (a) every reduced
-    decoder (``--serve-arch-reduced``), (b) Llama 3.2 1B uncut
-    (``--serve-arch-llama``), (c) Mamba2 2.7B uncut
+    on the card, a process per uncut model (`isolated`): (a) every reduced
+    decoder (`serve_arch_reduced`, in (d)'s process), (b) Llama 3.2 1B
+    uncut (``--serve-arch-llama``), (c) Mamba2 2.7B uncut
     (``--serve-arch-mamba``), (d) a two-layer DeepSeek-V2
     (``--serve-arch-moe``). Returns the line; raises on a failed gate."""
     t_phase = time.perf_counter()
     line = {"phase": "serve_arch_path",
-            "reduced_models": isolated("--serve-arch-reduced",
-                                       "serve_arch_path reduced"),
             "llama": isolated("--serve-arch-llama", "serve_arch_path llama"),
             "mamba": isolated("--serve-arch-mamba", "serve_arch_path mamba"),
             "moe": isolated("--serve-arch-moe", "serve_arch_path moe")}
+    line["reduced_models"] = line["moe"].pop("reduced_models")
     line["reduced"] = {SERVE_ARCH_MOE: line["moe"]["reduced"]}
     runs = [r for w in ("llama", "mamba") for r in line[w]["runs"].values()]
     names = runs[0]["launches"]
@@ -3943,7 +4005,84 @@ def arch_llama(reset_counts, read_counts, read_all_variants):
     out["runtime_rows_on_worker"] = leaks["on_worker"]
     out["overhead"] = 1.0 - (out["batch"]["steady_steps_per_s"]
                              / out["off"]["steady_steps_per_s"])
+    out["remat"] = arch_remat()
     out["seconds"] = time.perf_counter() - t0
+    # the reduced models in this process: one CUDA context fewer
+    out["reduced_models"] = arch_reduced(reset_counts, read_counts,
+                                         read_all_variants)
+    return out
+
+
+REMAT_MODES, REMAT_STEPS = ("none", "full", "dots"), 10
+
+
+def arch_remat():
+    """Llama 3.2 1B uncut (bf16, batch 8, sequence 128, the whole step
+    graphed, AdamW) with each ``Runtime.remat`` of REMAT_MODES, REMAT_STEPS
+    steps from the same weights on the same batches: the losses, ms a step
+    after the graphed step's set-up calls, and two peaks of
+    ``torch.cuda.max_memory_allocated``: over one eager forward and
+    backward from the initial state (``fwd_bwd_peak_gb``, where remat
+    acts) and over the graphed steps (``peak_gb``: its graph holds the
+    AdamW update too, whose temporaries beside the gradients and moments
+    set that peak). Each is reset before; the state and graph of one
+    variant are freed before the next."""
+    import torch
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import Runtime, batch_to_device
+    from repro_torch.train.step import (init_train_state,
+                                        make_loss_and_grads,
+                                        make_optimizer_for, make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = get_arch(ARCH_LLAMA)
+    data = SyntheticLMData(cfg, seq_len=ARCH_SEQ, global_batch=ARCH_BATCH,
+                           seed=0)
+    batches = [batch_to_device(data.batch(i), dev)
+               for i in range(REMAT_STEPS)]
+    out = {}
+    for mode in REMAT_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt = make_optimizer_for(TrainConfig(learning_rate=3e-4,
+                                             total_steps=REMAT_STEPS,
+                                             warmup_steps=1), cfg)
+        state = init_train_state(cfg, opt, seed=0, device=dev,
+                                 generator_device=dev)
+        rt = Runtime(torch.bfloat16, remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grads = make_loss_and_grads(cfg, rt)(state.params, batches[0])[2]
+        torch.cuda.synchronize()
+        fwd_bwd_peak = torch.cuda.max_memory_allocated() / 1e9
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(cfg, rt, opt)
+        losses, ends = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))  # waits for the step
+            ends.append(time.perf_counter() - t0)
+        out[mode] = {"losses": losses,
+                     "ms_per_step": 1e3 * (ends[-1] - ends[SETUP_STEPS - 1])
+                     / (len(ends) - SETUP_STEPS),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "fwd_bwd_peak_gb": fwd_bwd_peak}
+        del state, step, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    none = out["none"]["losses"]
+    for mode in REMAT_MODES[1:]:
+        got = out[mode]["losses"]
+        out[mode]["losses_bitwise"] = got == none
+        out[mode]["max_rel_loss_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(got, none))
     return out
 
 
@@ -4111,18 +4250,17 @@ def arch_moe(reset_counts, read_counts, read_all_variants):
 
 def arch_phase():
     """Phase ``arch_path``: the reference's other families on the card, a
-    process per model (`isolated`): the reduced models' graphed steps
-    (``--arch-reduced``), Llama 3.2 1B monitored in batch mode
-    (``--arch-llama``), Mamba2 2.7B in stream mode (``--arch-mamba``) and a
-    two-layer DeepSeek-V2 (``--arch-moe``). Returns the line; raises on a
-    failed gate."""
+    process per uncut model (`isolated`): Llama 3.2 1B monitored in batch
+    mode and its remat variants, then the reduced models' graphed steps
+    (`arch_reduced`), in one process (``--arch-llama``); Mamba2 2.7B in
+    stream mode (``--arch-mamba``) and a two-layer DeepSeek-V2
+    (``--arch-moe``). Returns the line; raises on a failed gate."""
     t_phase = time.perf_counter()
     line = {"phase": "arch_path",
-            "reduced_models": isolated("--arch-reduced",
-                                       "arch_path reduced"),
             "llama": isolated("--arch-llama", "arch_path llama"),
             "mamba": isolated("--arch-mamba", "arch_path mamba"),
             "moe": isolated("--arch-moe", "arch_path moe")}
+    line["reduced_models"] = line["llama"].pop("reduced_models")
     line["reduced_models"]["cases"] = ARCH_CASES
     # the one cut of a published configuration: DeepSeek-V2's depth
     line["reduced"] = {ARCH_MOE: line["moe"]["reduced"]}
@@ -4152,6 +4290,17 @@ def check_arch(line):
                                f"detection zone or on the worker")
     if not ll["off"]["losses_finite"]:
         raise SmokeFailure("arch_path llama off: non-finite loss")
+    rm = ll["remat"]
+    for mode in REMAT_MODES[1:]:
+        if not rm[mode]["max_rel_loss_diff"] <= 1e-6:
+            raise SmokeFailure(f"arch_path llama remat {mode}: losses "
+                               f"differ from none's: {rm[mode]['losses']} "
+                               f"vs {rm['none']['losses']}")
+    if not rm["full"]["fwd_bwd_peak_gb"] < rm["none"]["fwd_bwd_peak_gb"]:
+        raise SmokeFailure(f"arch_path llama remat: full's forward and "
+                           f"backward peak {rm['full']['fwd_bwd_peak_gb']} "
+                           f"GB not below none's "
+                           f"{rm['none']['fwd_bwd_peak_gb']} GB")
     check_arch_session("llama batch", ll["batch"], ("gmm_score", "gmm_best"))
     step = ll["batch"]["rates"]["step"]
     if step is None or not (step["hit"] > 0.5
@@ -4173,6 +4322,103 @@ def check_arch(line):
                            f"{mo['losses']}")
 
 
+MESH_STEPS, MESH_LOSSES = 120, 20
+
+
+def mesh_phase(reset_counts, read_counts, read_all_variants):
+    """``--mesh-path`` (a process of its own): `repro_torch.launch.train`
+    at full width (GPT-2 124M, bf16, batch 8, sequence 128, the step
+    graphed) over a 1 x 1 mesh (``--data-mesh 1 --model-mesh 1``, a
+    process group of one on NCCL) in batch mode with ``--inject-faults``,
+    MESH_STEPS steps, after the same run without a mesh, unmonitored (the
+    monitor does not touch the model: its losses are the reference). One
+    card holds one rank: two ranks cannot share a device in one NCCL
+    communicator. Returns the line's numbers."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    base = ["--arch", "gpt2", "--device", "cuda", "--steps", str(MESH_STEPS),
+            "--batch", "8", "--seq", "128", "--inject-faults",
+            "--log-every", "0"]
+    plain = train.train(train.parser().parse_args(
+        base + ["--monitor-spec", json.dumps({"mode": "off"})]))
+    want = plain["losses"][:MESH_LOSSES]
+    no_mesh_rate = steady_steps_per_s(plain["step_end_s"])
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {"mode": "batch", "probe_options": train.LEGACY_PROBE_OPTIONS}
+    args = train.parser().parse_args(
+        base + ["--data-mesh", "1", "--model-mesh", "1", "--monitor-spec",
+                json.dumps(spec)])
+    reset_counts()
+    with runtime_leaks() as leaks, mesh_mod.process_group("cuda"):
+        backend = torch.distributed.get_backend()
+        out = train.train(args)
+    launches, plain_calls = read_counts()
+    report, losses = out["report"], out["losses"]
+    got = losses[:MESH_LOSSES]
+    col = report.layers.get("collective")
+    res = {"steps": MESH_STEPS, "backend": backend, "mesh": out["mesh"],
+           "losses": got, "no_mesh_losses": want,
+           "losses_bitwise": got == want,
+           "max_rel_loss_diff": max(abs(a - b) / abs(b)
+                                    for a, b in zip(got, want)),
+           "losses_finite": all(math.isfinite(v) for v in losses),
+           "steady_steps_per_s": steady_steps_per_s(out["step_end_s"]),
+           "no_mesh_off_steady_steps_per_s": no_mesh_rate,
+           "collective_schedule": out["collectives"],
+           "collective_rows": col.events if col is not None else 0,
+           "rates": layer_rates(report, out["injector"], MESH_STEPS),
+           "launches": launches, "plain_calls": plain_calls,
+           "variants": read_all_variants(),
+           "runtime_rows_in_zone": leaks["in_zone"],
+           "runtime_rows_on_worker": leaks["on_worker"],
+           "seconds": time.perf_counter() - t0}
+    del out
+    return res
+
+
+def check_mesh(line):
+    """mesh_path's gates: the first MESH_LOSSES losses equal the no-mesh
+    run's (bit for bit, or within 1e-6 relative: then ``unmet``); STEP hit
+    > 0.5 and > 2x false; the COLLECTIVE schedule read off the step (a
+    1 x 1 mesh issues none, so no row), never a made-up one; the batch
+    kernels launched, specialised only, no plain call, no runtime row in a
+    detection zone."""
+    if not line["losses_finite"]:
+        raise SmokeFailure("mesh_path: non-finite loss")
+    if line["max_rel_loss_diff"] > 1e-6:
+        raise SmokeFailure(f"mesh_path: losses differ from the no-mesh "
+                           f"run's: {line['losses']} vs "
+                           f"{line['no_mesh_losses']}")
+    step = line["rates"]["step"]
+    if step is None or not (step["hit"] > 0.5
+                            and step["hit"] > 2 * step["false"]):
+        raise SmokeFailure(f"mesh_path: STEP detection too weak: {step}")
+    sched = line["collective_schedule"]
+    if sched is None or sched["source"] != "step" \
+            or line["collective_rows"] != sched["ops"] * line["steps"]:
+        raise SmokeFailure(f"mesh_path: the COLLECTIVE layer is not the "
+                           f"step's own: {sched}, "
+                           f"{line['collective_rows']} rows")
+    if not (line["launches"]["gmm_score"] and line["launches"]["gmm_best"]) \
+            or any(line["plain_calls"].values()) \
+            or any(v["general"] for v in line["variants"].values()):
+        raise SmokeFailure(f"mesh_path: launches {line['launches']}, plain "
+                           f"{line['plain_calls']}, variants "
+                           f"{line['variants']}")
+    if line["runtime_rows_in_zone"] or line["runtime_rows_on_worker"]:
+        raise SmokeFailure("mesh_path: runtime-probe rows in a detection "
+                           "zone or on the worker")
+    return [] if line["losses_bitwise"] else [
+        f"losses within 1e-6 relative, not bit for bit "
+        f"({line['max_rel_loss_diff']:.3g})"]
+
+
 # what ``chip_smoke.py FLAG OUT [ARG]`` runs in a process of its own
 # (`isolated`; ``--ckpt-run`` is started by ``ckpt_path``'s own process)
 CHILDREN = {"--eval-pass-a": eval_pass_a, "--eval-pass-b": eval_pass_b,
@@ -4183,7 +4429,8 @@ CHILDREN = {"--eval-pass-a": eval_pass_a, "--eval-pass-b": eval_pass_b,
             "--serve-arch-reduced": serve_arch_reduced,
             "--serve-arch-llama": serve_arch_llama,
             "--serve-arch-mamba": serve_arch_mamba,
-            "--serve-arch-moe": serve_arch_moe, "--nvml-path": nvml_phase}
+            "--serve-arch-moe": serve_arch_moe, "--nvml-path": nvml_phase,
+            "--mesh-path": mesh_phase}
 
 
 def build_phase(build, kmod, card):
@@ -4388,6 +4635,15 @@ def main() -> int:
     families_phase(train, reset_counts, read_counts,
                    session["modes"]["off"]["steady_steps_per_s"])
 
+    # 7b. the launcher over a 1 x 1 mesh on NCCL, against the same run
+    mesh = {"phase": "mesh_path", **isolated("--mesh-path", "mesh_path"),
+            "session_path_batch_steady_steps_per_s":
+                session["modes"]["batch"]["steady_steps_per_s"]}
+    try:
+        mesh["unmet"] = check_mesh(mesh)
+    finally:
+        emit(mesh)
+
     # 8. the scenario-matrix evaluation harness: the CI gate, then full width
     ev = eval_phase()
 
@@ -4427,7 +4683,7 @@ def main() -> int:
     errs = check_case(ops, N, D, K, torch.float32, seed=99)
     errs.update(check_em_case(ops, *STREAM_FIT_SHAPE, torch.float32,
                               seed=98)[0])
-    at_path = measure(ops, kmod, N, D, K, reps=200)
+    at_path = measure(ops, kmod, N, D, K, reps=200, library=True)
     at_path.update(measure_em(ops, smod, *STREAM_FIT_SHAPE, reps=200))
     shapes = {"gmm_score": shape, "gmm_best": shape,
               "gmm_stats": STREAM_FIT_SHAPE, "gmm_update": STREAM_FIT_SHAPE}
@@ -4440,6 +4696,10 @@ def main() -> int:
                     for n, d, k in EM_SCALING})
     emit({"phase": "kernel_scaling", "card": card, "shapes": scaling,
           "seconds": time.perf_counter() - t_phase})
+    if not at_path["gmm_score"]["library_agrees"]:
+        raise SmokeFailure(f"gmm_score's library call disagrees with the "
+                           f"kernel beyond its tolerance: "
+                           f"{at_path['gmm_score']['library_max_abs_err']}")
     for name, res in at_path.items():
         want = {"kernels": 1.0, "memsets": float(name in ("gmm_stats",
                                                           "gmm_update")),
@@ -4458,7 +4718,8 @@ def main() -> int:
          "max_abs_err": errs[name], "ms": at_path[name]["ms"],
          "plain_ms": at_path[name]["plain_ms"],
          "bound_ms": at_path[name]["bound_ms"],
-         "bound_by": at_path[name]["bound_by"], "library_ms": None,
+         "bound_by": at_path[name]["bound_by"],
+         "library_ms": at_path[name]["library_ms"],
          "kernel_only_ms": at_path[name]["kernel_only_ms"],
          "host_ms": at_path[name]["host_ms"], "shape": list(shapes[name]),
          "path": "main_path" if paths[name] is launches else "stream_path",
@@ -4470,7 +4731,8 @@ def main() -> int:
                               "obs_path": ob["launches"][name],
                               "serve_path": sv["launches"][name],
                               "arch_path": ar["launches"][name],
-                              "serve_arch_path": sa["launches"][name]},
+                              "serve_arch_path": sa["launches"][name],
+                              "mesh_path": mesh["launches"][name]},
          "kernels_per_call": at_path[name]["nodes"]["kernels"],
          "memsets_per_call": at_path[name]["nodes"]["memsets"],
          "variants_by_path": {"main_path": variants[name],
@@ -4481,7 +4743,8 @@ def main() -> int:
                               "obs_path": ob["variants"][name],
                               "serve_path": sv["variants"][name],
                               "arch_path": ar["variants"][name],
-                              "serve_arch_path": sa["variants"][name]}}
+                              "serve_arch_path": sa["variants"][name],
+                              "mesh_path": mesh["variants"][name]}}
         for name in ("gmm_score", "gmm_best", "gmm_stats", "gmm_update")],
         "smoke_seconds": time.perf_counter() - t_smoke})
     print(card, flush=True)

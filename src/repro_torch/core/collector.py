@@ -37,6 +37,9 @@ class Collector:
         self.probes = probes
         self.t0 = time.perf_counter()
         self._by_name = {p.name: p for p in probes}
+        # where the COLLECTIVE layer's schedule came from ("hlo" text or
+        # the meshed "step"'s own record) and its length; None: no schedule
+        self.collective_schedule: Optional[Dict[str, Any]] = None
         step = self._by_name.get("step")
         if step is not None:
             for p in probes:
@@ -114,8 +117,12 @@ class Collector:
         ``lowered`` is a collective schedule in HLO text, or anything whose
         ``as_text()`` gives one (the reference passes a lowered JAX step):
         the collective probe reads its schedule off it, as the reference's
-        does. A one-card torch step has no such artifact; a caller that
-        models a sharded step passes the text itself."""
+        does. A torch step has no such artifact: a step built over a mesh
+        (``fn.mesh``, set by `train.step.make_train_step`) has its schedule
+        read off the collectives its meta record issues, and a step over a
+        mesh that issues none (one rank) leaves the COLLECTIVE layer empty
+        (``collective_schedule`` says so). A caller that models a sharded
+        step passes HLO text itself."""
         step = self.step_probe
         step.flops_per_step = flops_per_step
         step.mem_gb_per_step = mem_gb
@@ -124,12 +131,18 @@ class Collector:
                 hlo = lowered if isinstance(lowered, str) else \
                     lowered.as_text()
                 self._by_name["collective"].register_compiled(hlo)
+                self.collective_schedule = {
+                    "source": "hlo",
+                    "ops": len(self._by_name["collective"]._schedule)}
             except Exception as e:
                 warnings.warn(
                     f"probe 'collective': register_compiled failed ({e!r}); "
                     "collective-layer events will be missing", RuntimeWarning,
                     stacklevel=2)
-        if sample_args is not None and "operator" in self._by_name:
+        meshed = (lowered is None and getattr(fn, "mesh", None) is not None
+                  and "collective" in self._by_name)
+        if sample_args is not None and ("operator" in self._by_name
+                                        or meshed):
             # the record is the monitor's own work: the python probe's hook
             # would log it, and slows a deep model's record several-fold
             python = self._by_name.get("python")
@@ -137,16 +150,35 @@ class Collector:
             if paused:
                 python.detach()
             try:
-                self._by_name["operator"].register_fn(fn, *sample_args)
-            except Exception as e:
-                warnings.warn(
-                    f"probe 'operator': register_fn failed ({e!r}); "
-                    "operator-layer events will be missing", RuntimeWarning,
-                    stacklevel=2)
+                self._record(fn, sample_args, meshed)
             finally:
                 if paused:
                     python.attach(self.buffer, t0=self.t0)
         return step.wrap(fn)
+
+    def _record(self, fn: Callable, sample_args: tuple,
+                meshed: bool) -> None:
+        """The operator probe's record of ``fn`` and, for a meshed step,
+        the COLLECTIVE layer's schedule from the same record."""
+        from repro_torch.core.probes.operator_probe import record_step
+
+        op = self._by_name.get("operator")
+        try:
+            if op is not None:
+                op.register_fn(fn, *sample_args)
+                collectives = op.collectives
+            else:
+                collectives = record_step(fn, *sample_args)[1]
+        except Exception as e:
+            warnings.warn(
+                f"probe 'operator': register_fn failed ({e!r}); "
+                "operator-layer events will be missing", RuntimeWarning,
+                stacklevel=3)
+            return
+        if meshed:
+            self._by_name["collective"].register_schedule(collectives)
+            self.collective_schedule = {"source": "step",
+                                        "ops": len(collectives)}
 
     # -- data -----------------------------------------------------------------
     def drain_columns(self) -> Dict[str, np.ndarray]:

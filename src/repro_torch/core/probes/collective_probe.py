@@ -1,7 +1,9 @@
 """Collective-layer probe: the NCCL-event analogue.
 
 Message sizes come from the compiled HLO's collective ops (exact, like uprobe
-arguments on ncclAllReduce); per-step latencies come from the step-time
+arguments on ncclAllReduce) or, for a sharded torch step, from the
+collectives the step itself issues (`register_schedule`, read off the
+operator probe's record); per-step latencies come from the step-time
 decomposition plus the ICI bandwidth model. Fault injection (chaos) perturbs
 the observed latencies the way chaosblade perturbs the NIC in the paper.
 """
@@ -89,12 +91,18 @@ class CollectiveProbe(Probe):
 
     def register_compiled(self, hlo_text: str) -> None:
         """Read the collective schedule off a compiled artifact (non-intrusive)."""
+        self.register_schedule(parse_hlo_collectives(hlo_text))
+
+    def register_schedule(self, schedule: List[Dict[str, Any]]) -> None:
+        """Replay ``schedule`` (records of ``op``, ``bytes``, ``shape``, as
+        `parse_hlo_collectives` gives them) every step."""
         import json
 
-        self._schedule = parse_hlo_collectives(hlo_text)
-        self._ops = np.array([rec["op"] for rec in self._schedule])
+        self._schedule = list(schedule)
+        self._ops = np.array([rec["op"] for rec in self._schedule],
+                             dtype="<U64")
         self._bytes = np.array([float(rec["bytes"])
-                                for rec in self._schedule])
+                                for rec in self._schedule], dtype=np.float64)
         self._base_lat = self._bytes / self.link_bw + self.latency_us * 1e-6
         head = self._schedule[:64]
         if head:

@@ -20,12 +20,17 @@ whose replays dispatch no aten op, and running it would train (parameters
 and optimizer moments are updated in place). On meta tensors the step takes
 its eager path, and the record leaves the training state bit-identical, as
 ``jax.make_jaxpr`` does in the reference.
+
+The same record holds the collectives a sharded step issues: each
+``_c10d_functional`` op it dispatches (`record_step`), named and sized as
+the reference's ``parse_hlo_collectives`` names and sizes the compiled
+HLO's, for the COLLECTIVE layer (`Collector.observe_step_fn`).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -65,16 +70,34 @@ def op_flops(func, args, kwargs, out) -> float:
     return float(out_elems)
 
 
+# `torch.distributed`'s functional collectives -> the reference's HLO names
+COLLECTIVE_NAMES = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
 class _Recorder(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.records: List[Dict[str, Any]] = []
+        self.collectives: List[Dict[str, Any]] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         outs = _tensors(out)
         name = func._overloadpacket.__name__
+        if func.namespace == "_c10d_functional" and name in COLLECTIVE_NAMES:
+            for t in outs:  # the op's result, as HLO text shapes it
+                self.collectives.append({
+                    "op": COLLECTIVE_NAMES[name],
+                    "bytes": t.numel() * t.element_size(),
+                    "shape": list(t.shape)})
         self.records.append({
             "name": name,
             "prim": name,
@@ -93,16 +116,23 @@ def _to_meta(x):
     return x
 
 
-def extract_operator_records(fn, *args, **kwargs) -> List[Dict[str, Any]]:
+def record_step(fn, *args, **kwargs
+                ) -> Tuple[List[Dict[str, Any]], List[Dict[str, Any]]]:
     """Run fn once with every tensor of its argument tree replaced by a meta
     copy (host data such as a numpy batch is passed as it is; the step
-    moves it to its parameters' device, here meta) -> per-aten-op
-    records."""
+    moves it to its parameters' device, here meta) -> (per-aten-op
+    records, the collectives it issued in order: ``op``, ``bytes``,
+    ``shape``)."""
     meta_args, meta_kwargs = tree_map(_to_meta, (args, kwargs))
     rec = _Recorder()
     with rec:
         fn(*meta_args, **meta_kwargs)
-    return rec.records
+    return rec.records, rec.collectives
+
+
+def extract_operator_records(fn, *args, **kwargs) -> List[Dict[str, Any]]:
+    """`record_step`'s per-aten-op records."""
+    return record_step(fn, *args, **kwargs)[0]
 
 
 class OperatorProbe(Probe):
@@ -122,6 +152,8 @@ class OperatorProbe(Probe):
         self._row_names = np.empty(0, dtype="<U64")
         self._row_fracs = np.empty(0, dtype=np.float64)
         self._row_bytes = np.empty(0, dtype=np.float64)
+        # the collectives of the last recorded step (`record_step`)
+        self.collectives: List[Dict[str, Any]] = []
 
     def _attach(self) -> None:
         pass  # passive: fed by the collector/step probe
@@ -135,7 +167,7 @@ class OperatorProbe(Probe):
     def register_fn(self, fn, *args, **kwargs) -> None:
         """Extract the operator stream of a step function (never modifies it
         or its arguments)."""
-        recs = extract_operator_records(fn, *args, **kwargs)
+        recs, self.collectives = record_step(fn, *args, **kwargs)
         recs.sort(key=lambda r: -r["flops"])
         self._records = recs[: self.top_n]
         self._total_flops = max(sum(r["flops"] for r in recs), 1.0)

@@ -37,8 +37,18 @@ state after N steps and a resumed loop starts at step N; the reference
 names the state after step s by s and runs step s again on resume, so a
 resumed run here equals the uninterrupted one.
 
-``--data-mesh``, whose module (launch/mesh.py) is not ported yet, exits
-with an error naming the slice it waits for.
+``--data-mesh N --model-mesh M`` trains over an N x M mesh
+(`launch/mesh.py`): on one process when N·M = 1, else under ``torchrun
+--nproc-per-node N·M`` (``nccl`` on the card, ``gloo`` with ``--device
+cpu``). The state is laid out by the reference's sharding rules, every rank
+runs its own monitor session (eACGM's agent runs per process) and its
+COLLECTIVE layer replays the collectives its step issues; rank 0 alone
+writes the report, the sinks and the checkpoints (whole tensors: a run on
+another mesh, or none, resumes them), and the other ranks print their
+verdict with their rank. The process group is torn down on every exit.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --reduced \
+        --device cpu --data-mesh 2 --steps 20 --batch 4 --seq 32
 """
 from __future__ import annotations
 
@@ -56,12 +66,13 @@ from repro_torch.config import ShapeConfig, TrainConfig, get_arch, reduced
 from repro_torch.core import FaultInjector
 from repro_torch.data import SyntheticLMData
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.model import Runtime, batch_to_device
 from repro_torch.roofline import model_flops
 from repro_torch.session import MonitorSpec, Session, SinkSpec
-from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.checkpoint import CheckpointManager, shardings_of
 from repro_torch.train.step import (init_train_state, make_optimizer_for,
-                                    make_train_step)
+                                    make_train_step, state_specs)
 
 # historical tuning of the train driver, applied only on the legacy-flag path
 # (an explicit --monitor-spec keeps full control of these)
@@ -116,10 +127,14 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_later_slices(ap: argparse.ArgumentParser, args) -> None:
-    if args.data_mesh:
-        ap.error("--data-mesh is not ported yet: it comes with the "
-                 "launch/mesh.py slice of the port")
+def _check_args(ap: argparse.ArgumentParser, args) -> None:
+    if args.data_mesh < 0 or args.model_mesh < 1:
+        ap.error("--data-mesh and --model-mesh take sizes >= 1")
+    n = args.data_mesh * args.model_mesh
+    if n > 1 and not mesh_mod.under_torchrun():
+        ap.error(f"a --data-mesh {args.data_mesh} x --model-mesh "
+                 f"{args.model_mesh} mesh (launch/mesh.py) needs {n} "
+                 f"ranks: run under torchrun --nproc-per-node {n}")
     if args.microbatches < 1 or args.batch % args.microbatches:
         ap.error(f"--batch {args.batch} does not split into "
                  f"--microbatches {args.microbatches}")
@@ -163,33 +178,43 @@ def train(args) -> Dict[str, Any]:
     the step it followed, ``action_steps``), the step the loop started at
     (``start_step``, > 0 after a resume) and the checkpoint manager's
     ``saves`` (empty without ``--checkpoint-dir``)."""
-    dev = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.data_mesh:
+        mesh = mesh_mod.make_local_mesh(args.data_mesh, args.model_mesh,
+                                        device=args.device)
+        rank = torch.distributed.get_rank()
+        dev = mesh_mod.local_device(args.device)
+    else:
+        dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     rt = Runtime(compute_dtype=torch.float32 if args.reduced
-                 else torch.bfloat16)
+                 else torch.bfloat16, mesh=mesh)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        optimizer=args.optimizer,
                        warmup_steps=args.steps // 10)
-    opt = make_optimizer_for(tcfg, cfg)
+    opt = make_optimizer_for(tcfg, cfg, rt)
 
     data = SyntheticLMData(cfg, seq_len=args.seq, global_batch=args.batch,
                            seed=args.seed)
     state = init_train_state(cfg, opt, seed=args.seed, device=dev,
                              generator_device=dev if args.init_on_device
-                             else "cpu")
+                             else "cpu", rt=rt)
     step_fn = make_train_step(cfg, rt, opt, microbatches=args.microbatches)
 
     # ---- fault tolerance: auto-resume ----
     ckpt = None
     start_step = 0
     if args.checkpoint_dir:
-        ckpt = CheckpointManager(args.checkpoint_dir)
+        shardings = (shardings_of(state, state_specs(cfg, rt, state), mesh)
+                     if mesh is not None else None)
+        ckpt = CheckpointManager(args.checkpoint_dir, shardings=shardings)
         restored, meta, rstep = ckpt.restore_latest(state)
         if restored is not None:
             state, start_step = restored, rstep
-            print(f"[resume] restored checkpoint at step {rstep}")
+            if rank == 0:
+                print(f"[resume] restored checkpoint at step {rstep}")
         ckpt.reserve(state)  # the host buffers, before the loop
 
     # ---- monitoring session (runtime attachment; user code unchanged) ----
@@ -199,7 +224,9 @@ def train(args) -> Dict[str, Any]:
     if not args.stream_monitor:
         legacy_defaults["detector"] = {"min_events": 48}
     spec = MonitorSpec.from_args(args, legacy_defaults=legacy_defaults)
-    if spec.mode != "off":
+    if rank != 0:
+        spec.sinks = []  # rank 0 alone writes the sinks
+    elif spec.mode != "off":
         if args.metrics_port >= 0:
             spec.sinks.append(SinkSpec(
                 kind="prometheus",
@@ -207,7 +234,7 @@ def train(args) -> Dict[str, Any]:
         if args.board_out:
             spec.sinks.append(SinkSpec(kind="board", path=args.board_out))
     session = Session(spec, device=dev)
-    if not session.off and args.metrics_port >= 0:
+    if not session.off and args.metrics_port >= 0 and rank == 0:
         print(f"[monitor] metrics endpoint: "
               f"{session.sink('prometheus').url}/metrics", flush=True)
     injector = None
@@ -229,6 +256,14 @@ def train(args) -> Dict[str, Any]:
                 flops_per_step=model_flops(cfg, shp),
                 mem_gb=sum(p.numel() * p.element_size()
                            for p in state.params.values()) / 2**30)
+            sched = session.collector.collective_schedule
+            if mesh is not None and rank == 0:
+                print(f"[monitor] COLLECTIVE layer: "
+                      + (f"{sched['ops']} collective(s) a step, read off "
+                         f"the step on mesh {mesh_mod.describe(mesh)}"
+                         if sched and sched["ops"] else
+                         f"empty: the step issues no collective on mesh "
+                         f"{mesh_mod.describe(mesh)}"), flush=True)
         t_loop = time.perf_counter()  # attach and the operator record before
 
         # ---- training loop ----
@@ -244,8 +279,9 @@ def train(args) -> Dict[str, Any]:
                 loss = float(metrics["loss"])  # waits for the step
                 losses.append(loss)
                 step_end_s.append(time.perf_counter() - t_loop)
-                if args.log_every and (step % args.log_every == 0
-                                       or step == args.steps - 1):
+                if args.log_every and rank == 0 and (
+                        step % args.log_every == 0
+                        or step == args.steps - 1):
                     print(f"step {step:5d} loss {loss:8.4f} "
                           f"gnorm {float(metrics['grad_norm']):8.3f} "
                           f"lr {float(metrics['lr']):.2e} "
@@ -302,24 +338,43 @@ def train(args) -> Dict[str, Any]:
             "injector": injector, "actions": actions,
             "action_steps": action_steps, "start_step": start_step,
             "saves": ckpt.saves if ckpt is not None else [],
-            "interrupted": interrupted, "device": str(dev)}
+            "interrupted": interrupted, "device": str(dev), "rank": rank,
+            "mesh": mesh_mod.describe(mesh) if mesh is not None else None,
+            "collectives": None if session.off
+            else session.collector.collective_schedule}
+
+
+def _verdict(report) -> str:
+    if not report.incidents:
+        return "no incidents"
+    steps = report.anomalous_steps()
+    return (f"{len(report.incidents)} incident(s), "
+            f"{len(steps)} anomalous step(s)")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    _refuse_later_slices(ap, args)
-    out = train(args)
-    report = out["report"]
-    if report is not None:
-        print(report.render())
-        print("[monitor] overhead stats:", report.overhead)
-    losses = out["losses"]
-    if losses:
-        print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f}); "
-              f"{len(losses)} steps in {out['seconds']:.1f}s "
-              f"(+{out['setup_s']:.1f}s set-up) on "
-              f"{out['device']}")
+    _check_args(ap, args)
+    group = (mesh_mod.process_group(args.device) if args.data_mesh
+             else contextlib.nullcontext())
+    with group:
+        out = train(args)
+        report = out["report"]
+        if out["rank"] != 0:
+            if report is not None:
+                print(f"[rank {out['rank']}] {_verdict(report)}")
+            return 130 if out["interrupted"] else 0
+        if report is not None:
+            print(report.render())
+            print("[monitor] overhead stats:", report.overhead)
+        losses = out["losses"]
+        if losses:
+            where = out["device"] + (f", mesh {out['mesh']}"
+                                     if out["mesh"] else "")
+            print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f}); "
+                  f"{len(losses)} steps in {out['seconds']:.1f}s "
+                  f"(+{out['setup_s']:.1f}s set-up) on {where}")
     return 130 if out["interrupted"] else 0
 
 

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import Params, apply_rope
+from repro_torch.models.sharding import P
 
 NEG_INF = -1e30
 
@@ -76,51 +77,121 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor,
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, window: int = 0) -> torch.Tensor:
+           causal: bool, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Full-sequence attention, the reference's ``blocked_attention``
-    (`repro/models/attention.py:68-193`) without its blocking: q (B, S, H,
-    Dk), k (B, S, KV, Dk), v (B, S, KV, Dv) -> (B, S, H, Dv) in q's dtype.
-    Scores are scaled by 1/sqrt(Dk); ``causal`` keeps keys at or before the
-    query, ``window`` > 0 only the ``window`` latest of those (Mistral's
-    sliding window), and neither keeps every key (an encoder)."""
-    B, S, H, Dk = q.shape
-    KV, Dv = k.shape[2], v.shape[-1]
+    (`repro/models/attention.py:68-193`) without its blocking: q (B, Sq, H,
+    Dk), k (B, Sk, KV, Dk), v (B, Sk, KV, Dv) -> (B, Sq, H, Dv) in q's
+    dtype, query i at position ``q_offset + i``. Scores are scaled by
+    1/sqrt(Dk); ``causal`` keeps keys at or before the query, ``window`` >
+    0 only the ``window`` latest of those (Mistral's sliding window), and
+    neither keeps every key (an encoder)."""
+    B, Sq, H, Dk = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KV
-    # (B*KV, G*S, Dk) queries against (B*KV, S, Dk) keys and (.., Dv) values
-    q = q.reshape(B, S, KV, G, Dk).permute(0, 2, 3, 1, 4).reshape(
-        B * KV, G * S, Dk)
-    k = k.permute(0, 2, 1, 3).reshape(B * KV, S, Dk)
-    v = v.permute(0, 2, 1, 3).reshape(B * KV, S, Dv)
+    # (B*KV, G*Sq, Dk) queries against (B*KV, Sk, Dk) keys and (.., Dv)
+    q = q.reshape(B, Sq, KV, G, Dk).permute(0, 2, 3, 1, 4).reshape(
+        B * KV, G * Sq, Dk)
+    k = k.permute(0, 2, 1, 3).reshape(B * KV, Sk, Dk)
+    v = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, Dv)
     s = matmul_f32(q, k.transpose(1, 2), q.dtype) / math.sqrt(Dk)
     if causal or window:
-        pos = torch.arange(S, device=q.device)
-        blocked = (pos[None, :] > pos[:, None]) if causal else None
+        pos = torch.arange(Sk, device=q.device)
+        qpos = pos[q_offset:q_offset + Sq]
+        blocked = (pos[None, :] > qpos[:, None]) if causal else None
         if window:
-            far = pos[:, None] - pos[None, :] >= window
+            far = qpos[:, None] - pos[None, :] >= window
             blocked = far if blocked is None else blocked | far
-        s = s.view(B * KV, G, S, S).masked_fill(blocked, NEG_INF).view(
-            B * KV, G * S, S)
+        s = s.view(B * KV, G, Sq, Sk).masked_fill(blocked, NEG_INF).view(
+            B * KV, G * Sq, Sk)
     p = torch.softmax(s, dim=-1)
-    o = matmul_f32(p, v, v.dtype)  # (B*KV, G*S, Dv)
-    return o.view(B, KV, G, S, Dv).permute(0, 3, 1, 2, 4).reshape(
-        B, S, H, Dv).to(q.dtype)
+    o = matmul_f32(p, v, v.dtype)  # (B*KV, G*Sq, Dv)
+    return o.view(B, KV, G, Sq, Dv).permute(0, 3, 1, 2, 4).reshape(
+        B, Sq, H, Dv).to(q.dtype)
+
+
+def attention_mode(cfg: ModelConfig, rt, B: int, S: int) -> Optional[str]:
+    """How attention splits over the model axis: ``"heads"`` (its heads
+    divide it), ``"seq"`` (its query rows do: `_seq_shard_spec`), or None
+    (whole on each rank; also without a mesh)."""
+    if rt is None or rt.mesh is None:
+        return None
+    if rt.model_divides(cfg.n_heads):
+        return "heads"
+    if _seq_shard_spec(rt, cfg, B, S) is not None:
+        return "seq"
+    return None
+
+
+def _seq_shard_spec(rt, cfg: ModelConfig, B: int, S: int):
+    """The queries' spec when attention splits its rows over the model
+    axis (`repro/models/attention.py:232-241`): its heads do not divide
+    the axis and its rows do. None otherwise."""
+    if (rt is None or rt.mesh is None or not rt.attn_seq_shard
+            or rt.strategy != "tp" or S <= 1):
+        return None
+    msize = rt.mesh_shape.get(rt.model_axis, 1)
+    if cfg.n_heads % msize == 0 or S % msize != 0:
+        return None
+    return P(rt.batch_spec(B), rt.model_axis, None, None)
+
+
+def _global_batch(rt, B: int) -> int:
+    return (rt.global_batch or B) if rt is not None else B
+
+
+def _local_heads(rt, x: torch.Tensor, H_loc: int, H: int,
+                 KV: int) -> torch.Tensor:
+    """A whole (B, S, KV, hd) key or value -> the heads this rank's H_loc
+    query heads read, one per query head (its kv heads did not split)."""
+    rank = rt.axes[rt.model_axis].rank
+    idx = (rank * H_loc + torch.arange(H_loc, device=x.device)) // (H // KV)
+    return x.index_select(2, idx)
 
 
 def gqa_forward(params: Params, prefix: str, cfg: ModelConfig,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, rt=None) -> torch.Tensor:
     """x: (B, S, d_model) -> (B, S, d_model): GQA with the config's RoPE,
-    causality and sliding window (`repro/models/attention.py:197-224`)."""
+    causality and sliding window (`repro/models/attention.py:197-224`).
+    On a mesh each rank computes its heads (the weights are its pieces)
+    or, when they do not split, its query rows (`attention_mode`)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params[f"{prefix}.q.kernel"].to(x.dtype)).view(B, S, H, hd)
-    k = (x @ params[f"{prefix}.k.kernel"].to(x.dtype)).view(B, S, KV, hd)
-    v = (x @ params[f"{prefix}.v.kernel"].to(x.dtype)).view(B, S, KV, hd)
+    Bg = _global_batch(rt, B)
+    mode = attention_mode(cfg, rt, Bg, S)
+    wq, wk = params[f"{prefix}.q.kernel"], params[f"{prefix}.k.kernel"]
+    wv = params[f"{prefix}.v.kernel"]
+    H_loc, KV_loc = wq.shape[-1] // hd, wk.shape[-1] // hd
+    xq = xkv = x
+    if mode == "heads":
+        xq = xkv = rt.tp_enter(x)
+    elif mode == "seq":
+        # keys and values serve every query row: each rank's gradient of
+        # them is its rows' part
+        xkv = rt.tp_enter(x)
+    q = (xq @ wq.to(x.dtype)).view(B, S, H_loc, hd)
+    k = (xkv @ wk.to(x.dtype)).view(B, S, KV_loc, hd)
+    v = (xkv @ wv.to(x.dtype)).view(B, S, KV_loc, hd)
     if cfg.use_rope:
         pos = torch.arange(S, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    o = attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
-    return o.reshape(B, S, H * hd) @ params[f"{prefix}.out.kernel"].to(x.dtype)
+    if mode == "heads" and KV_loc == KV and H_loc != H:
+        k, v = (_local_heads(rt, t, H_loc, H, KV) for t in (k, v))
+    q_offset = 0
+    seq_shard = _seq_shard_spec(rt, cfg, Bg, S) if mode == "seq" else None
+    if seq_shard is not None:
+        # heads don't divide the model axis: shard attention over the QUERY
+        # sequence instead (K/V whole on every model rank)
+        whole = rt.activation_spec(Bg, (None, None, None))
+        q = rt.shard(q, seq_shard, whole)
+        q_offset = rt.axes[rt.model_axis].rank * q.shape[1]
+    o = attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+               q_offset=q_offset)
+    if seq_shard is not None:
+        o = rt.shard(o, whole, seq_shard)
+    y = o.reshape(B, S, H_loc * hd) @ params[f"{prefix}.out.kernel"].to(
+        x.dtype)
+    return rt.tp_exit(y) if mode == "heads" else y
 
 
 def _rms(x: torch.Tensor, scale: torch.Tensor,
@@ -132,22 +203,26 @@ def _rms(x: torch.Tensor, scale: torch.Tensor,
 
 
 def mla_forward(params: Params, prefix: str, cfg: ModelConfig,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, rt=None) -> torch.Tensor:
     """DeepSeek-V2's multi-head latent attention, materialised per head as
     the reference's full-sequence path does (`repro/models/attention.py:
     248-280`): queries and keys of nope + rope dims (the rope part of the
-    key shared by all heads), values of ``v_head_dim``."""
+    key shared by all heads), values of ``v_head_dim``. On a mesh whose
+    model axis the heads divide, each rank computes its heads."""
     B, S, _ = x.shape
-    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
-        cfg.v_head_dim
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     pos = torch.arange(S, device=x.device)
+    heads = attention_mode(cfg, rt, _global_batch(rt, B), S) == "heads"
+    if heads:
+        x = rt.tp_enter(x)
 
     def w(name):
         return params[f"{prefix}.{name}"].to(x.dtype)
 
     cq = _rms(x @ w("q_down.kernel"), params[f"{prefix}.q_norm.scale"])
-    q = (cq @ w("q_up.kernel")).view(B, S, H, dn + dr)
+    q = (cq @ w("q_up.kernel")).view(B, S, -1, dn + dr)
+    H = q.shape[2]
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], pos,
                                             cfg.rope_theta)
     ckv = x @ w("kv_down.kernel")
@@ -158,14 +233,15 @@ def mla_forward(params: Params, prefix: str, cfg: ModelConfig,
     k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = attend(q, k, v, causal=cfg.causal)
-    return o.reshape(B, S, H * dv) @ w("out.kernel")
+    y = o.reshape(B, S, H * dv) @ w("out.kernel")
+    return rt.tp_exit(y) if heads else y
 
 
 def attention_forward(params: Params, prefix: str, cfg: ModelConfig,
-                      x: torch.Tensor) -> torch.Tensor:
+                      x: torch.Tensor, rt=None) -> torch.Tensor:
     if cfg.attn_kind == "mla":
-        return mla_forward(params, prefix, cfg, x)
-    return gqa_forward(params, prefix, cfg, x)
+        return mla_forward(params, prefix, cfg, x, rt=rt)
+    return gqa_forward(params, prefix, cfg, x, rt=rt)
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,17 @@ stacked per-layer norm scale is decayed and a ``head_layers`` one is not)
 and Adafactor's factoring; Adafactor's factored moments of stacked
 per-layer vectors and its update clipping span the whole stacked leaf, so
 the per-layer tensors are grouped as the reference stacks them.
+
+On a mesh each rank holds its pieces of the parameters, gradients and
+moments (the moments follow the parameters' specs, a factored moment the
+spec less its reduced dim: the reference's ``opt_state_pspecs``), and a
+`Shards` object makes every reduction span the pieces: the global norm,
+Adafactor's row and column means and its update RMS.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,6 +56,53 @@ class Optimizer(NamedTuple):
     advance: Callable[..., Any]
 
 
+class Shards:
+    """How each parameter is split over a mesh: ``specs`` (name -> spec),
+    ``axes`` (`repro_torch.models.sharding.Axis` by name). Reductions over
+    a split dim are summed over the ranks holding its pieces."""
+
+    def __init__(self, specs: Dict[str, Any], axes: Dict[str, Any]):
+        from repro_torch.models.sharding import entry_axes
+
+        self.axes = axes
+        self.dims = {k: {d: [axes[a] for a in entry_axes(e)
+                             if axes[a].size > 1]
+                         for d, e in enumerate(spec)}
+                     for k, spec in specs.items()}
+        self.split = {k: [ax for d in dims.values() for ax in d]
+                      for k, dims in self.dims.items()}
+        # ranks holding the same piece (its copies)
+        self.copies = {k: math.prod(ax.size for ax in axes.values())
+                       // math.prod(ax.size for ax in self.split[k])
+                       for k in specs}
+
+    def sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+        from repro_torch.models.sharding import all_reduce_
+
+        for ax in axes:
+            x = all_reduce_(x, ax)
+        return x
+
+    def mean(self, x: torch.Tensor, key: str, dim: int,
+             param_dim: Optional[int]) -> torch.Tensor:
+        """``torch.mean(x, dim)`` where that dim of ``x`` is parameter
+        ``key``'s ``param_dim`` (None: a stacking dim, never split)."""
+        axes = self.dims[key].get(param_dim, []) \
+            if param_dim is not None else []
+        if not axes:
+            return torch.mean(x, dim=dim)
+        n = x.shape[dim] * math.prod(ax.size for ax in axes)
+        return self.sum_over(torch.sum(x, dim=dim), axes) / n
+
+    def norm(self, keys: List[str], grads: List[torch.Tensor]
+             ) -> torch.Tensor:
+        """The global L2 norm of the pieces ``grads`` of ``keys``."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        sq = torch.sum(norms * norms / torch.tensor(
+            [float(self.copies[k]) for k in keys], device=norms.device))
+        return torch.sqrt(self.sum_over(sq, self.axes.values()))
+
+
 def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """The gradients' global L2 norm (a device scalar: no host sync)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -60,11 +114,14 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
-def _clip_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def _clip_(grads: Tensors, max_norm: float,
+           shards: Optional[Shards] = None) -> torch.Tensor:
     """``grads`` scaled in place to a global L2 norm of at most
     ``max_norm``; the norm before clipping."""
-    norm = _global_norm(grads)
-    torch._foreach_mul_(grads, _clip_scale(norm, max_norm))
+    keys, gs = list(grads), list(grads.values())
+    norm = (shards.norm(keys, gs) if shards is not None
+            else _global_norm(gs))
+    torch._foreach_mul_(gs, _clip_scale(norm, max_norm))
     return norm
 
 
@@ -87,7 +144,8 @@ def _chunks(keys: List[str], params: Tensors) -> List[List[str]]:
 
 def adamw(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1,
-          grad_clip: float = 1.0, *, layout: Layout) -> Optimizer:
+          grad_clip: float = 1.0, *, layout: Layout,
+          shards: Optional[Shards] = None) -> Optimizer:
     def init(params: Tensors):
         zeros = {k: torch.zeros_like(p, dtype=torch.float32)
                  for k, p in params.items()}
@@ -129,7 +187,7 @@ def adamw(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
         tensors holding them) added to ``params``; the moments are updated
         in place. Returns the gradients' global norm before clipping."""
         keys = list(params)
-        gnorm = _clip_([grads[k] for k in keys], grad_clip)
+        gnorm = _clip_({k: grads[k] for k in keys}, grad_clip, shards)
         decays = {k: r >= 2 for k, r in stacked_rank(params, layout).items()}
         with torch.no_grad():
             for part in _chunks(keys, params):
@@ -148,7 +206,7 @@ def adamw(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
 def adafactor(lr_fn: Callable[[int], float], eps: float = 1e-30,
               clip_threshold: float = 1.0, decay_rate: float = 0.8,
               weight_decay: float = 0.0, grad_clip: float = 1.0, *,
-              layout: Layout) -> Optimizer:
+              layout: Layout, shards: Optional[Shards] = None) -> Optimizer:
     """Shazeer & Stern 2018, no-momentum variant, as the reference's
     (`repro/optim/optimizers.py:70-126`): a stacked leaf of rank >= 2 keeps
     factored (row, col) second moments over its last two axes, a vector the
@@ -186,14 +244,22 @@ def adafactor(lr_fn: Callable[[int], float], eps: float = 1e-30,
         rate = step ** (-decay_rate)
         return {"lr": lr_fn(step), "beta2": 1.0 - rate, "1-beta2": rate}
 
-    def factored_u(g, vr, vc, sc):
+    def mean(x, key, dim, param_dim):
+        if shards is None:
+            return torch.mean(x, dim=dim)
+        return shards.mean(x, key, dim, param_dim)
+
+    def factored_u(g, vr, vc, sc, key, dims):
         """One factored leaf (or one layer's slice of it): its moments
-        updated in place, and g over their root."""
+        updated in place, and g over their root. ``dims``: the parameter
+        dims of g's last two (None: a stacking dim)."""
         g2 = g * g + eps
-        vr.mul_(sc["beta2"]).add_(torch.mean(g2, dim=-1) * sc["1-beta2"])
-        vc.mul_(sc["beta2"]).add_(torch.mean(g2, dim=-2) * sc["1-beta2"])
+        vr.mul_(sc["beta2"]).add_(mean(g2, key, -1, dims[1])
+                                  * sc["1-beta2"])
+        vc.mul_(sc["beta2"]).add_(mean(g2, key, -2, dims[0])
+                                  * sc["1-beta2"])
         del g2
-        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+        denom = torch.clamp(mean(vr, key, -1, dims[0])[..., None],
                             min=eps)[..., None]
         u = g / torch.sqrt(vr[..., None] / denom)
         return u.div_(torch.sqrt(vc[..., None, :]))
@@ -202,22 +268,29 @@ def adafactor(lr_fn: Callable[[int], float], eps: float = 1e-30,
                      ps: List[torch.Tensor], sc) -> List[torch.Tensor]:
         """The updates of one stacked leaf's members, in their order."""
         r = g[0].dim()
+        key = members[0][0]
         if len(stacked) + r < 2:  # an unstacked vector: full moments
             g2 = g[0] * g[0] + eps
             mom["v"].mul_(sc["beta2"]).add_(g2 * sc["1-beta2"])
             us = [g[0] / torch.sqrt(mom["v"])]
         elif r >= 2:  # per-layer matrices: each layer's slice on its own
             us = [factored_u(gi, mom["vr"][idx] if idx else mom["vr"],
-                             mom["vc"][idx] if idx else mom["vc"], sc)
+                             mom["vc"][idx] if idx else mom["vc"], sc,
+                             key, (r - 2, r - 1))
                   for gi, (_, idx) in zip(g, members)]
         else:  # stacked per-layer vectors: factored across the layers
             stacked_g = torch.stack(g).reshape(tuple(stacked) + g[0].shape)
-            u = factored_u(stacked_g, mom["vr"], mom["vc"], sc)
+            u = factored_u(stacked_g, mom["vr"], mom["vc"], sc, key,
+                           (None, 0))
             us = list(u.reshape(len(g), -1).unbind(0))
         # update clipping: RMS(u) <= clip_threshold over the stacked leaf
         n = sum(u.numel() for u in us)
         norms = torch.stack(torch._foreach_norm(us))
-        rms = torch.sqrt(torch.sum(norms * norms) / n)
+        sq = torch.sum(norms * norms)
+        if shards is not None and shards.split[key]:
+            n *= math.prod(ax.size for ax in shards.split[key])
+            sq = shards.sum_over(sq, shards.split[key])
+        rms = torch.sqrt(sq / n)
         torch._foreach_div_(us, torch.clamp(rms / clip_threshold, min=1.0))
         if weight_decay and len(stacked) + r >= 2:
             torch._foreach_add_(us, [p.detach().to(torch.float32)
@@ -234,7 +307,7 @@ def adafactor(lr_fn: Callable[[int], float], eps: float = 1e-30,
                                      [params[k] for k in keys], sc)
 
     def step_(grads: Tensors, state, params: Tensors, sc) -> torch.Tensor:
-        gnorm = _clip_([grads[k] for k in params], grad_clip)
+        gnorm = _clip_({k: grads[k] for k in params}, grad_clip, shards)
         with torch.no_grad():
             for ks, us in each_leaf(grads, state, params, sc):
                 torch._foreach_add_([params[k] for k in ks], us)
@@ -267,12 +340,14 @@ def moments(opt_state) -> List[torch.Tensor]:
 
 def make_optimizer(name: str, lr_fn: Callable[[int], float],
                    weight_decay: float = 0.1, grad_clip: float = 1.0, *,
-                   layout: Layout) -> Optimizer:
-    """``layout``: `repro_torch.config.stack_layout` of the model."""
+                   layout: Layout, shards: Optional[Shards] = None
+                   ) -> Optimizer:
+    """``layout``: `repro_torch.config.stack_layout` of the model;
+    ``shards``: how its parameters split over a mesh (None: whole)."""
     if name == "adamw":
         return adamw(lr_fn, weight_decay=weight_decay, grad_clip=grad_clip,
-                     layout=layout)
+                     layout=layout, shards=shards)
     if name == "adafactor":
         return adafactor(lr_fn, weight_decay=weight_decay,
-                         grad_clip=grad_clip, layout=layout)
+                         grad_clip=grad_clip, layout=layout, shards=shards)
     raise ValueError(f"unknown optimizer {name}")

@@ -9,8 +9,15 @@ Layout:  <dir>/step_<n>/
 A state is any pytree of tensors and Python numbers (`torch.utils._pytree`:
 dicts, lists, tuples, named tuples such as `TrainState`). On restore each
 tensor goes to the device, dtype and ``requires_grad`` of the matching leaf
-of ``like``. The reference's elastic re-sharding (``shardings``) has no
-counterpart: the port runs on one device.
+of ``like``.
+
+Elastic (`repro/train/checkpoint.py:1-12, 87-107`): a checkpoint holds
+whole tensors. A state sharded over a mesh is saved with its
+``shardings`` (a matching pytree of `Sharding`, None for a leaf held
+whole): each piece is gathered (``full_tensor()``, on every rank) and
+rank 0 alone writes. ``restore_checkpoint(..., shardings=...)`` lays each
+leaf out on the current mesh (``distribute_tensor``), so a run without a
+mesh resumes a sharded run's checkpoint and the reverse.
 
 `CheckpointManager.save` snapshots on the caller's CUDA stream into pinned
 host buffers (non-blocking copies, then an event) and writes in the
@@ -26,10 +33,13 @@ import json
 import os
 import shutil
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
+
+from repro_torch.models.sharding import distribute, full_tensor
 
 STATE_FILE = "state.pt"
 MANIFEST = "manifest.json"
@@ -57,12 +67,64 @@ def _host(leaf):
     return leaf
 
 
+class Sharding(NamedTuple):
+    """How a tensor lies on a mesh (the reference's ``NamedSharding``):
+    ``spec`` over ``mesh``; ``shape``, the whole tensor's."""
+
+    mesh: Any
+    spec: Sequence
+    shape: Tuple[int, ...]
+
+
+def shardings_of(state, specs, mesh):
+    """``specs`` (a pytree matching ``state``, None for a leaf held whole)
+    -> the `Sharding` pytree of ``state``'s pieces on ``mesh``."""
+    from repro_torch.models.sharding import axis_sizes, entry_axes
+
+    sizes = axis_sizes(mesh)
+
+    def one(leaf, spec):
+        if spec is None or not isinstance(leaf, torch.Tensor):
+            return None
+        shape = list(leaf.shape)
+        for d, e in enumerate(spec):
+            for a in entry_axes(e):
+                shape[d] *= sizes[a]
+        return Sharding(mesh, spec, tuple(shape))
+
+    leaves, treedef = pytree.tree_flatten(state)
+    spec_leaves = treedef.flatten_up_to(specs)
+    return pytree.tree_unflatten(
+        [one(l, s) for l, s in zip(leaves, spec_leaves)], treedef)
+
+
+def _whole(state, shardings):
+    """``state`` with each sharded piece gathered into its whole tensor
+    (a collective: every rank calls it)."""
+    leaves, treedef = pytree.tree_flatten(state)
+    shs = treedef.flatten_up_to(shardings)
+    return pytree.tree_unflatten(
+        [full_tensor(l, s.spec, s.mesh, s.shape) if s is not None else l
+         for l, s in zip(leaves, shs)], treedef)
+
+
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state,
-                    meta: Optional[Dict] = None, keep: int = 3) -> str:
+                    meta: Optional[Dict] = None, keep: int = 3,
+                    shardings=None) -> str:
     """Atomic synchronous save. `state` is any pytree of tensors and
-    numbers; tensors on a device are copied to the host first."""
-    leaves, _ = pytree.tree_flatten(state)
+    numbers; tensors on a device are copied to the host first. With
+    ``shardings`` every rank calls it, the pieces are gathered, and rank 0
+    writes."""
+    if shardings is not None:
+        state = _whole(state, shardings)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if shardings is not None and not _writer():
+        return final
+    leaves, _ = pytree.tree_flatten(state)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -108,9 +170,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _restore_leaf(arr, ref):
+def _restore_leaf(arr, ref, sharding=None):
     if not isinstance(ref, torch.Tensor):
         return arr
+    if sharding is not None:
+        if tuple(arr.shape) != tuple(sharding.shape):
+            raise ValueError(f"shape mismatch: {tuple(arr.shape)} vs "
+                             f"{tuple(sharding.shape)}")
+        arr = distribute(arr.to(ref.dtype), sharding.spec, sharding.mesh,
+                         ref.device)
     if tuple(arr.shape) != tuple(ref.shape):
         raise ValueError(f"shape mismatch: {tuple(arr.shape)} vs "
                          f"{tuple(ref.shape)}")
@@ -118,9 +186,12 @@ def _restore_leaf(arr, ref):
     return out.requires_grad_(ref.requires_grad)
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like):
+def restore_checkpoint(ckpt_dir: str, step: int, like, shardings=None):
     """Restore into the structure of `like`: each tensor on the device and
-    in the dtype of `like`'s matching leaf. Returns (state, meta)."""
+    in the dtype of `like`'s matching leaf. With ``shardings`` (the
+    `Sharding` pytree of ``like``'s pieces) each whole leaf is laid out on
+    its mesh: this is where elastic resharding happens (every rank calls
+    it). Returns (state, meta)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
@@ -131,7 +202,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, like):
             f"{len(leaves)} — structure changed between save and restore")
     loaded = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                         weights_only=True)
-    restored = [_restore_leaf(arr, ref) for arr, ref in zip(loaded, leaves)]
+    shs = (treedef.flatten_up_to(shardings) if shardings is not None
+           else [None] * len(leaves))
+    restored = [_restore_leaf(arr, ref, sh)
+                for arr, ref, sh in zip(loaded, leaves, shs)]
     return pytree.tree_unflatten(restored, treedef), manifest["meta"]
 
 
@@ -150,11 +224,16 @@ class CheckpointManager:
     save (bounded staleness of 1). ``saves`` records each save's step, the
     seconds it held the caller (``stall_s``), the background write's
     seconds (``write_s``, once done) and the bytes of its tensors.
+
+    With ``shardings`` (the `Sharding` pytree of a sharded state) every
+    rank calls save(): the pieces are gathered on the caller's thread and
+    rank 0 alone writes; restores lay the whole tensors out on the mesh.
     """
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, shardings=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.shardings = shardings
         self._executor = cf.ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[cf.Future] = None
         self._pinned: List[torch.Tensor] = []
@@ -164,8 +243,11 @@ class CheckpointManager:
     def reserve(self, state) -> None:
         """Allocate the pinned host buffers a save of ``state`` copies into
         (else the first save does: pinning the 1.48 GB of a full-width
-        GPT-2 state held that save ~0.7 s on the H100)."""
+        GPT-2 state held that save ~0.7 s on the H100). A sharded state's
+        buffers hold whole tensors: its first save pins them."""
         self.wait()
+        if self.shardings is not None:
+            return
         self._pin([l for l in pytree.tree_leaves(state)
                    if isinstance(l, torch.Tensor) and l.is_cuda])
 
@@ -217,10 +299,16 @@ class CheckpointManager:
     def save(self, step: int, state, meta: Optional[Dict] = None) -> None:
         t0 = time.perf_counter()
         self.wait()
+        if self.shardings is not None:
+            state = _whole(state, self.shardings)
         leaves, treedef = pytree.tree_flatten(state)
-        host, done = self._snapshot(leaves)
         record = {"step": step, "bytes": _nbytes(leaves),
                   "reason": (meta or {}).get("reason", "periodic")}
+        if self.shardings is not None and not _writer():
+            record["stall_s"] = time.perf_counter() - t0
+            self.saves.append(record)
+            return
+        host, done = self._snapshot(leaves)
         self._pending = self._executor.submit(
             self._write, step, pytree.tree_unflatten(host, treedef), done,
             meta, record)
@@ -237,7 +325,8 @@ class CheckpointManager:
         step = latest_step(self.ckpt_dir)
         if step is None:
             return None, None, None
-        state, meta = restore_checkpoint(self.ckpt_dir, step, like)
+        state, meta = restore_checkpoint(self.ckpt_dir, step, like,
+                                         self.shardings)
         return state, meta, step
 
     def close(self) -> None:

@@ -15,6 +15,14 @@ the graph through 0-dim device tensors filled before each replay, so the
 host's part of a step is those fills, the batch's copy and one graph
 launch, and a host stall while the card runs the step lengthens the step
 only if it lasts past the step's end.
+
+On a mesh (``rt.mesh``) the state holds each rank's pieces, laid out by
+`param_partition_specs` (`init_train_state`; moments as their parameters, a
+factored Adafactor moment less its reduced dim: the reference's
+``opt_state_pspecs``), the step takes the global batch, the gradients are
+summed over the batch's pieces inside the backward (so inside the step's
+graph), and the optimizer updates each rank's pieces with its reductions
+spanning the mesh (`optim.optimizers.Shards`).
 """
 from __future__ import annotations
 
@@ -23,13 +31,15 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig, TrainConfig, stack_layout
+from repro_torch.config import (ModelConfig, TrainConfig, param_shapes,
+                                stack_layout)
 from repro_torch.device import DeviceLike
 from repro_torch.models.layers import Params
 from repro_torch.models.model import (Runtime, batch_to_device, init_params,
-                                      loss_fn)
+                                      loss_fn, param_partition_specs)
+from repro_torch.models.sharding import P, distribute
 from repro_torch.optim import Optimizer, make_optimizer, make_schedule
-from repro_torch.optim.optimizers import moments
+from repro_torch.optim.optimizers import Shards, moments
 
 Batch = Dict[str, torch.Tensor]
 # (loss, metrics, grads in the order of params) — all detached
@@ -45,21 +55,69 @@ class TrainState(NamedTuple):
 
 def init_train_state(cfg: ModelConfig, opt: Optimizer, seed: int = 0,
                      device: DeviceLike = None,
-                     generator_device: DeviceLike = "cpu") -> TrainState:
+                     generator_device: DeviceLike = "cpu",
+                     rt: Optional[Runtime] = None) -> TrainState:
+    """The initial state; on ``rt``'s mesh, this rank's pieces of it (every
+    rank draws the same whole parameters from ``seed``)."""
     params = init_params(cfg, seed=seed, device=device,
                          generator_device=generator_device)
+    if rt is not None and rt.mesh is not None:
+        specs = param_partition_specs(cfg, rt, param_shapes(cfg))
+        params = {k: distribute(p, specs[k], rt.mesh).requires_grad_()
+                  for k, p in params.items()}
     return TrainState(params=params, opt_state=opt.init(params), step=0)
 
 
-def make_optimizer_for(cfg_t: TrainConfig, cfg: ModelConfig) -> Optimizer:
+def mesh_shards(cfg: ModelConfig, rt: Optional[Runtime]
+                ) -> Optional[Shards]:
+    """How the parameters split over ``rt``'s mesh, for the optimizer's
+    reductions; None without a mesh or on a mesh of one rank (whose
+    reductions are the local ones, bit for bit)."""
+    if rt is None or rt.mesh is None or rt.mesh.size() == 1:
+        return None
+    return Shards(param_partition_specs(cfg, rt, param_shapes(cfg)),
+                  rt.axes)
+
+
+def make_optimizer_for(cfg_t: TrainConfig, cfg: ModelConfig,
+                       rt: Optional[Runtime] = None) -> Optimizer:
     """``cfg``: the model, whose stacking (`stack_layout`) decides weight
-    decay and Adafactor's factoring as the reference's stacked leaves do."""
+    decay and Adafactor's factoring as the reference's stacked leaves do;
+    ``rt``: its runtime, whose mesh the optimizer's reductions span."""
     sched = make_schedule(cfg_t.schedule, cfg_t.learning_rate,
                           cfg_t.warmup_steps, cfg_t.total_steps)
     return make_optimizer(cfg_t.optimizer, sched,
                           weight_decay=cfg_t.weight_decay,
                           grad_clip=cfg_t.grad_clip,
-                          layout=stack_layout(cfg))
+                          layout=stack_layout(cfg),
+                          shards=mesh_shards(cfg, rt))
+
+
+def state_specs(cfg: ModelConfig, rt: Runtime, state: TrainState
+                ) -> TrainState:
+    """The specs of a train state's tensors, in its structure (None for
+    its numbers): the parameters' `param_partition_specs`, AdamW's moments
+    the same, Adafactor's factored moments their stacked leaf's spec less
+    the reduced dim (`repro/launch/specs.py:63-80`)."""
+    pspecs = param_partition_specs(cfg, rt, param_shapes(cfg))
+    opt = state.opt_state
+    ospecs: Dict[str, Any] = {k: None for k in opt}
+    for key in ("mu", "nu"):
+        if key in opt:
+            ospecs[key] = dict(pspecs)
+    if "m" in opt:
+        leaf_spec = {}
+        for name, (leaf, _, stacked) in stack_layout(cfg).items():
+            rank = len(param_shapes(cfg)[name])
+            spec = tuple(pspecs[name]) + (None,) * (rank - len(pspecs[name]))
+            leaf_spec[leaf] = (None,) * len(stacked) + spec
+        ospecs["m"] = {}
+        for leaf, mom in opt["m"].items():
+            e = leaf_spec[leaf]
+            ospecs["m"][leaf] = ({"v": P(*e)} if "v" in mom else
+                                 {"vr": P(*e[:-1]),
+                                  "vc": P(*(e[:-2] + e[-1:]))})
+    return TrainState(params=pspecs, opt_state=ospecs, step=None)
 
 
 def make_loss_and_grads(cfg: ModelConfig, rt: Runtime, microbatches: int = 1,
@@ -183,7 +241,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
     unless ``cuda_graph=False``. The parameters and the optimizer's moments
     are updated in place (`Optimizer.step_`) to keep one copy of them; the
     returned state holds the same tensors. Metrics stay on the device:
-    reading one is the caller's sync."""
+    reading one is the caller's sync. On a mesh ``batch`` is the global
+    batch and the state this rank's pieces (`init_train_state`)."""
     loss_and_grads = make_loss_and_grads(cfg, rt, microbatches)
     # what the graphed step reads by address: the optimizer state's moments
     # and the step's scalars (0-dim tensors, filled before each call)
@@ -235,4 +294,5 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
                "lr": opt_state["lr"], **metrics}
         return new_state, out
 
+    step.mesh = rt.mesh  # what the monitor reads the collectives of
     return step

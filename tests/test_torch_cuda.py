@@ -12,7 +12,10 @@ device index read by RoPE and the ring slot) and its launcher,
 attention's float32-result product on bf16 operands against the CPU's,
 and the device probe's NVML source (the handle is torch's card by UUID,
 ``mem_gb`` follows an allocation, ``util`` rises under load, a hidden
-library fails the session's attach).
+library fails the session's attach); the mesh on one card: a 1 x 1 NCCL
+mesh's graphed step against the plain one, the graphed ``remat`` steps
+against the plain graphed step, and a meshed launcher run's COLLECTIVE
+layer.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -1046,3 +1049,70 @@ def test_cuda_session_with_nvml_hidden_fails_at_attach(cuda):
         with session.monitoring():
             pass
     assert sys.getprofile() is None  # the python probe went with it
+
+
+def _steps(cfg, rt, cuda, n=6):
+    """``n`` graphed train steps of ``cfg`` under ``rt`` from seed 0: the
+    losses and the final parameters."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.step import (init_train_state, make_optimizer_for,
+                                        make_train_step)
+
+    opt = make_optimizer_for(TrainConfig(learning_rate=1e-3, total_steps=n,
+                                         warmup_steps=1), cfg, rt)
+    state = init_train_state(cfg, opt, seed=0, device=cuda, rt=rt)
+    step = make_train_step(cfg, rt, opt)
+    data = SyntheticLMData(cfg, seq_len=32, global_batch=4, seed=0)
+    losses = []
+    for i in range(n):
+        state, m = step(state, data.batch(i))
+        losses.append(float(m["loss"]))
+    return losses, {k: p.detach().clone() for k, p in state.params.items()}
+
+
+def test_one_rank_nccl_mesh_step_matches_the_plain_step(cuda):
+    """On a 1 x 1 mesh over an NCCL group of one, the graphed GPT-2 step
+    is the step without a mesh: losses and parameters bit for bit (no
+    collective: every group has one rank)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    cfg = reduced(get_arch("gpt2"))
+    want = _steps(cfg, Runtime(torch.float32), cuda)
+    with mesh_mod.process_group("cuda", timeout_s=120):
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = mesh_mod.make_local_mesh(1, 1, "cuda")
+        got = _steps(cfg, Runtime(torch.float32, mesh=mesh), cuda)
+    assert got[0] == want[0]
+    for k, p in want[1].items():
+        assert torch.equal(got[1][k], p), k
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_graphed_remat_step_matches_the_plain_graphed_step(cuda, remat):
+    """``remat`` re-runs each block inside the step's CUDA graph: the
+    graphed steps equal the graphed steps without it, bit for bit."""
+    for arch in ("gpt2", "llama3.2-1b"):
+        cfg = reduced(get_arch(arch))
+        want = _steps(cfg, Runtime(torch.float32), cuda)
+        got = _steps(cfg, Runtime(torch.float32, remat=remat), cuda)
+        assert got[0] == want[0], arch
+        for k, p in want[1].items():
+            assert torch.equal(got[1][k], p), (arch, k)
+
+
+def test_meshed_launcher_collective_layer_is_the_step_s(cuda):
+    """The launcher over a 1 x 1 mesh on the card, monitored: its
+    COLLECTIVE schedule is read off the step, which issues no collective,
+    so the layer has no row — never the made-up schedule's."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parser().parse_args(
+        ["--reduced", "--device", "cuda", "--steps", "30", "--batch", "4",
+         "--seq", "32", "--log-every", "0", "--data-mesh", "1",
+         "--monitor-spec", '{"mode": "batch"}'])
+    with mesh_mod.process_group("cuda", timeout_s=120):
+        out = launch_train.train(args)
+    assert out["collectives"] == {"source": "step", "ops": 0}
+    layer = out["report"].layers.get("collective")
+    assert layer is None or layer.events == 0

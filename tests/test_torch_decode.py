@@ -181,8 +181,8 @@ def count_drops(monkeypatch, rt):
     drops = []
     route = tmoe.route
 
-    def counted(params, prefix, cfg, xf):
-        out = route(params, prefix, cfg, xf)
+    def counted(params, prefix, cfg, xf, rt_=None):
+        out = route(params, prefix, cfg, xf, rt_)
         C = tmoe._capacity(xf.shape[0], cfg.moe_top_k, cfg.n_experts,
                            rt.moe_capacity_factor)
         drops.append(int(tmoe.dropped(out[2], cfg.n_experts, C)))

@@ -116,9 +116,9 @@ def test_params_from_jax_rejects_a_foreign_tree():
 
 
 def test_unported_model_features_raise():
-    """What stays unported refuses by name: the launcher's ``--data-mesh``.
-    Decode refuses an encoder only (it has none, nor has the reference),
-    and every other family builds its caches."""
+    """Decode refuses an encoder only (it has none, nor has the reference),
+    and every other family builds its caches. A mesh of more ranks than
+    the process has refuses: ``--data-mesh 2`` outside ``torchrun``."""
     with pytest.raises(NotImplementedError, match="encoder"):
         tmodel.init_decode_caches(reduced(get_arch("hubert-xlarge")), 2, 16,
                                   device=CPU)

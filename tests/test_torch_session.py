@@ -696,11 +696,12 @@ def test_launcher_without_a_device_needs_a_card():
 def test_launcher_refuses_only_the_flags_still_unported(flags, module,
                                                         capsys, tmp_path,
                                                         monkeypatch):
-    """``--data-mesh`` exits 2 naming the slice it waits for; the
-    checkpoint and operator-surface flags, ``--microbatches 2`` and
-    ``--optimizer adafactor`` run (tests/test_torch_ckpt.py,
-    tests/test_torch_obs.py and tests/test_torch_archs*.py check what they
-    do)."""
+    """``--data-mesh 2`` outside ``torchrun`` exits 2 naming the mesh's
+    module and the ranks it needs (tests/test_torch_mesh.py runs it under
+    a process group of two); the checkpoint and operator-surface flags,
+    ``--microbatches 2`` and ``--optimizer adafactor`` run
+    (tests/test_torch_ckpt.py, tests/test_torch_obs.py and
+    tests/test_torch_archs*.py check what they do)."""
     monkeypatch.chdir(tmp_path)
     argv = ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
             "--seq", "16", "--log-every", "0", "--monitor-spec",
